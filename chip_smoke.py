@@ -3,33 +3,51 @@
 
     python3 chip_smoke.py
 
-Builds the binned z-buffer rasterizer kernel from ``pix2pose_torch/csrc``,
-holds it against its plain PyTorch version on the card, then drives the
-serving path (TCP server -> coalescing frontend -> PoseService ->
-two-stage engine -> batched ICP refiner -> rasterizer kernel) twice:
+Builds the z-buffer rasterizer kernel from ``pix2pose_torch/csrc``, holds
+each of its two entries against the plain PyTorch version on the card,
+then drives the port's paths through the entry points a user calls:
 
-  phase 1  kernel vs plain: P=8 hypotheses at 480x640, a 12-face cube and
-           a 40 000-face sphere; masks equal, 1/z within rtol 1e-5 where
-           covered, winning face equal on >= 99.5% of covered pixels,
-           overflow 0; median times from CUDA events.
-  phase 2  oracle generator on analytic cube scenes, depth rendered by
-           the port: 4 RGB-D requests through PoseClient; refined
-           translation error < 2% of t_z and no worse than unrefined +1 mm.
-  phase 3  the real paper autoencoder at 128x128 with seeded weights made
-           in flax layout and converted by flax_to_state_dict; 8 frames x
-           4 detections with depth through TCP; every pose finite.
+  phase 1  K1 (binned entry) vs plain: P=8 hypotheses at 480x640, a
+           12-face cube and a 40 000-face sphere; masks equal, 1/z within
+           rtol 1e-5 where covered, winning face equal on >= 99.5% of
+           covered pixels, overflow 0; median times from CUDA events.
+  phase 2  serving, oracle generator on analytic cube scenes, depth
+           rendered by the port: 4 RGB-D requests through PoseClient;
+           refined translation error < 2% of t_z and no worse than
+           unrefined +1 mm.
+  phase 3  serving, the real paper autoencoder at 128x128 with seeded
+           weights made in flax layout and converted by flax_to_state_dict;
+           8 frames x 4 detections with depth through TCP; every pose
+           finite.
+  phase 4  K2 (exhaustive entry) vs plain on phase 1's inputs and bar,
+           then the rasterizer benchmark tool at its defaults (scan,
+           exhaustive and binned rows at 2400, 40 000 and 99 000 faces);
+           fails if the rows' outputs disagree.
+  phase 5  training-data synthesis at full width: the synthetic BOP
+           dataset at its defaults (48 train + 6 test images, 480x640),
+           XYZ training pairs for objects 1-4 and the rendered train
+           views; every object writes pairs of uint8 (h, w, 6) with the
+           longest side <= 128 and a meta.json with visual_sym_idx; a few
+           of its views rendered by kernel and plain agree to phase 4's
+           bar. Prints each step's wall seconds and pairs per second.
+           Then object 1's pairs again with its cube cut into 40 368
+           faces (the service's mesh budget; same pairs to 2 LSB), timed
+           and then profiled with cProfile (top host functions printed).
 
-Phases 2 and 3 reset the kernel's launch counter just before serving and
-fail if the served path launched it no time. TF32 is off for matmuls and
+Each path (phases 2, 3, 4's benchmark and 5) runs with every kernel
+launch counter set to 0 just before it and read just after, and fails if
+a kernel it runs was launched no time. Launches that compare a kernel
+with its plain version are not counted. TF32 is off for matmuls and
 cuDNN. Prints the card's name and power limit first, then one JSON line
 of kernel results, the card line again, and last
-``{"ok": true, "device": {...}}``. Exits non-zero, without
-that line, when anything fails or no CUDA device is present.
+``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
+when anything fails or no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -82,8 +100,70 @@ def random_poses(rng, n, tz=(350.0, 700.0)):
             for _ in range(n)]
 
 
-def phase1_kernel_vs_plain(dev):
-    """Kernel vs plain on identical inputs; returns the kernel record."""
+FP32_OPS_PER_S = 67e12      # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+OPS_PER_TEST = 18           # csrc/rasterizer.cu: 6 mul, 8 add/sub, 4 cmp
+
+
+def compare_cores(label, k, p):
+    """Kernel outputs ``k`` vs plain ``p`` (izb, fidx, a, b): masks equal,
+    1/z within rtol 1e-5 where covered, winning face equal on >= 99.5% of
+    covered pixels. Returns (covered px, fidx equal share, max rel 1/z)."""
+    import torch
+
+    torch.cuda.synchronize()
+    (izb_k, fid_k, _, _), (izb_p, fid_p, _, _) = k, p
+    m_k, m_p = izb_k > 0, izb_p > 0
+    if not torch.equal(m_k, m_p):
+        raise AssertionError(f"{label}: masks differ on "
+                             f"{int((m_k ^ m_p).sum())} px")
+    cov = int(m_k.sum())
+    rel = float(((izb_k - izb_p).abs()
+                 / izb_p.abs().clamp(min=1e-30))[m_k].max()) if cov else 0.0
+    if rel > 1e-5:
+        raise AssertionError(f"{label}: 1/z rel err {rel}")
+    fid_eq = float((fid_k == fid_p)[m_k].float().mean()) if cov else 1.0
+    if fid_eq < 0.995:
+        raise AssertionError(f"{label}: fidx equal on {fid_eq:.4f}")
+    return cov, fid_eq, rel
+
+
+def face_bbox_tests(uv, z, faces, h, w) -> int:
+    """Coverage tests these inputs need: for every face in front of the
+    camera, the pixel centers of its screen bbox clipped to the frame,
+    summed over faces and hypotheses. uv (P, V, 2), z (P, V), faces
+    (P, F, 3)."""
+    import torch
+
+    pi = torch.arange(z.shape[0], device=z.device)[:, None, None]
+    fw = faces.to(torch.int64)
+    tri_uv, tri_z = uv[pi, fw], z[pi, fw]               # (P, F, 3, 2)
+    front = (tri_z > 0).all(-1)
+    lo = torch.ceil(tri_uv.amin(-2))
+    hi = torch.floor(tri_uv.amax(-2))
+    lo = torch.maximum(lo, torch.zeros_like(lo))
+    hi = torch.minimum(hi, torch.tensor([w - 1.0, h - 1.0], device=z.device))
+    n = torch.clamp(hi - lo + 1, min=0).prod(-1)
+    return int(torch.where(front, n, 0).sum())
+
+
+def roofline(packed, bounds, tests, h, w):
+    """(bound_ms, bound_by) of one z-buffer launch on these inputs:
+    ``tests`` coverage tests (:func:`face_bbox_tests`), 18 FP32 operations
+    each, against reading the coefficients and bounds once and writing the
+    four (P, h, w) outputs once."""
+    n_bytes = 4 * (packed.numel() + bounds.numel() + 4 * packed.shape[0]
+                   * h * w)
+    ops_ms = tests * OPS_PER_TEST / FP32_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by
+
+
+def kernel_vs_plain(dev, phase, core, entry, plain_entry):
+    """One z-buffer entry (``core`` = its launch function, ``entry`` its
+    public rasterizer) vs the plain version on phase 1's inputs; returns
+    the kernel record of the 40k-face case (the refiner's mesh budget)."""
     import numpy as np
     import torch
 
@@ -103,41 +183,58 @@ def phase1_kernel_vs_plain(dev):
         f = torch.as_tensor(faces, device=dev).expand(N_HYP, -1, -1)
         uv, z = project_vertices(v, R, t, K)
         packed, faces_s, bounds = rc._sorted_tris(uv, z, f, H, W)
-        izb_k, fid_k, a_k, b_k = rc._binned_core_cuda(packed, bounds, H, W)
-        izb_p, fid_p, a_p, b_p = rc._binned_core_plain(packed, bounds, H, W)
-        torch.cuda.synchronize()
-        m_k, m_p = izb_k > 0, izb_p > 0
-        if not torch.equal(m_k, m_p):
-            raise AssertionError(f"{name}: masks differ on "
-                                 f"{int((m_k ^ m_p).sum())} px")
-        cov = int(m_k.sum())
+        cov, fid_eq, rel = compare_cores(
+            f"{phase} {name}", core(packed, bounds, H, W),
+            rc._binned_core_plain(packed, bounds, H, W))
         if cov < 1000:
-            raise AssertionError(f"{name}: only {cov} covered px")
-        rel = ((izb_k - izb_p).abs() / izb_p.abs().clamp(min=1e-30))[m_k]
-        if float(rel.max()) > 1e-5:
-            raise AssertionError(f"{name}: 1/z rel err {float(rel.max())}")
-        fid_eq = float((fid_k == fid_p)[m_k].float().mean())
-        if fid_eq < 0.995:
-            raise AssertionError(f"{name}: fidx equal on {fid_eq:.4f}")
-        out_k = rc.rasterize_binned(uv, z, f, v, H, W)
-        out_p = rc.rasterize_binned_plain(uv, z, f, v, H, W)
+            raise AssertionError(f"{phase} {name}: only {cov} covered px")
+        out_k = entry(uv, z, f, v, H, W)
+        out_p = plain_entry(uv, z, f, v, H, W)
         if int(out_k.overflow) != 0:
             raise AssertionError(f"{name}: overflow {out_k.overflow}")
         if not torch.equal(out_k.mask, out_p.mask):
-            raise AssertionError(f"{name}: rendered masks differ")
+            raise AssertionError(f"{phase} {name}: rendered masks differ")
         dk, dp = out_k.depth[out_k.mask], out_p.depth[out_k.mask]
         depth_err = float((dk - dp).abs().max())
         if not torch.allclose(dk, dp, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"{name}: depth differs by {depth_err}")
-        ms_k = cuda_ms(lambda: rc._binned_core_cuda(packed, bounds, H, W))
+            raise AssertionError(f"{phase} {name}: depth differs by "
+                                 f"{depth_err}")
+        ms_k = cuda_ms(lambda: core(packed, bounds, H, W))
         ms_p = cuda_ms(lambda: rc._binned_core_plain(packed, bounds, H, W))
-        log(f"phase 1 {name}: P={N_HYP} {H}x{W} faces={faces.shape[0]} "
-            f"covered={cov} fidx_equal={fid_eq:.6f} "
-            f"1/z_max_rel={float(rel.max()):.3e} "
+        tests = face_bbox_tests(uv, z, f, H, W)
+        bound_ms, bound_by = roofline(packed, bounds, tests, H, W)
+        log(f"{phase} {name}: P={N_HYP} {H}x{W} faces={faces.shape[0]} "
+            f"covered={cov} fidx_equal={fid_eq:.6f} 1/z_max_rel={rel:.3e} "
             f"depth_max_abs={depth_err:.3e} mm  kernel {ms_k:.3f} ms  "
-            f"plain {ms_p:.3f} ms (median of 20, CUDA events)")
-        record = {"max_abs_err": depth_err, "ms": ms_k, "plain_ms": ms_p}
-    return record  # the 40k-face case: the refiner's mesh budget
+            f"plain {ms_p:.3f} ms (median of 20, CUDA events)  "
+            f"coverage tests {tests}  bound {bound_ms:.4f} ms "
+            f"({bound_by}), {100 * bound_ms / ms_k:.1f}% of the kernel time")
+        record = {"max_abs_err": depth_err, "ms": ms_k, "plain_ms": ms_p,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  # no single PyTorch call computes a z-buffer
+                  "library_ms": None}
+    return record
+
+
+def reset_counts():
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+
+    rc.rasterize_binned.launches = 0
+    rc.rasterize_exhaustive.launches = 0
+
+
+def read_counts() -> dict:
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+
+    return {"binned_zbuffer": rc.rasterize_binned.launches,
+            "exhaustive_zbuffer": rc.rasterize_exhaustive.launches}
+
+
+def phase1_kernel_vs_plain(dev):
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+
+    return kernel_vs_plain(dev, "phase 1", rc._binned_core_cuda,
+                           rc.rasterize_binned, rc.rasterize_binned_plain)
 
 
 def serve(service, requests, max_batch=8):
@@ -165,7 +262,7 @@ def phase2_oracle(dev):
     import numpy as np
     import torch
 
-    from pix2pose_torch.ops import rasterizer, rasterizer_cuda
+    from pix2pose_torch.ops import rasterizer
     from pix2pose_torch.serving import PoseService, ServingConfig
     from pix2pose_torch.serving.viz import bbox_corners
     from pix2pose_torch.utils.synthetic import (CAM_K, OracleGenerator,
@@ -192,9 +289,9 @@ def phase2_oracle(dev):
             torch.as_tensor(t / 1000.0, device=dev), CAM_K, H, W)
         frames.append((rgb, depth.cpu().numpy(), R, t))
     unrefined = svc.process_many([f[0] for f in frames])
-    rasterizer_cuda.rasterize_binned.launches = 0
+    reset_counts()
     outs, lat = serve(svc, [(f[0], f[1]) for f in frames])
-    launches = rasterizer_cuda.rasterize_binned.launches
+    launches = read_counts()["binned_zbuffer"]
     if launches == 0:
         raise AssertionError("phase 2: served path never launched the "
                              "rasterizer kernel")
@@ -211,6 +308,7 @@ def phase2_oracle(dev):
                                  f"{err_r} vs unrefined {err_u}")
     log(f"phase 2: 4 RGB-D requests over TCP, kernel launches {launches}, "
         f"latency per request {[round(x * 1e3, 1) for x in lat]} ms")
+    return launches
 
 
 def phase3_full_width(dev):
@@ -218,7 +316,7 @@ def phase3_full_width(dev):
     import torch
 
     from pix2pose_torch.models import build_generator
-    from pix2pose_torch.ops import rasterizer, rasterizer_cuda
+    from pix2pose_torch.ops import rasterizer
     from pix2pose_torch.serving import PoseService, ServingConfig
     from pix2pose_torch.serving.viz import bbox_corners
     from pix2pose_torch.utils.convert import (flax_to_state_dict,
@@ -258,9 +356,9 @@ def phase3_full_width(dev):
         requests.append((rgb.cpu().numpy(),
                          (out.depth / 1000.0).cpu().numpy()))
     serve(svc, requests[:1])                        # warm-up request
-    rasterizer_cuda.rasterize_binned.launches = 0
+    reset_counts()
     outs, lat = serve(svc, requests[1:])
-    launches = rasterizer_cuda.rasterize_binned.launches
+    launches = read_counts()["binned_zbuffer"]
     if launches == 0:
         raise AssertionError("phase 3: served path never launched the "
                              "rasterizer kernel")
@@ -279,6 +377,194 @@ def phase3_full_width(dev):
         f"request ms: median {sorted(lat_ms)[len(lat_ms) // 2]:.1f}, all "
         f"{[round(x, 1) for x in lat_ms]}")
     return launches
+
+
+def phase4_exhaustive(dev):
+    """K2 vs plain, then the benchmark tool (the entry point that runs K2)
+    at its defaults. Returns (K2 record, the tool's launch counts)."""
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+    from pix2pose_torch.tools import bench_rasterizer
+
+    record = kernel_vs_plain(dev, "phase 4", rc._exhaustive_core_cuda,
+                             rc.rasterize_exhaustive,
+                             rc.rasterize_exhaustive_plain)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench_rasterizer.run(device=dev,
+                               log=lambda m: log(f"phase 4 bench: {m}"))
+    counts = read_counts()
+    log(f"phase 4 bench: {time.perf_counter() - t0:.1f} s wall, kernel "
+        f"launches {counts}")
+    if not res["agree"]:
+        raise AssertionError("phase 4: benchmark rows disagree")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"phase 4: benchmark launched a kernel no "
+                             f"time: {counts}")
+    return record, counts
+
+
+def subdivided_cube(half: float, n: int):
+    """The rehearsal cube (side 2 * half) with each side cut into n x n
+    quads of two triangles: the same silhouette and XYZ colours as
+    ``cube_mesh(half)`` at 12 n^2 faces."""
+    import numpy as np
+
+    g = np.linspace(-half, half, n + 1, dtype=np.float32)
+    a, b = (x.ravel() for x in np.meshgrid(g, g, indexing="ij"))
+    idx = np.arange((n + 1) ** 2).reshape(n + 1, n + 1)
+    q0, q1, q2, q3 = (idx[:-1, :-1], idx[1:, :-1], idx[:-1, 1:],
+                      idx[1:, 1:])
+    quad = np.concatenate([np.stack([q0, q1, q2], -1).reshape(-1, 3),
+                           np.stack([q2, q1, q3], -1).reshape(-1, 3)])
+    verts, faces = [], []
+    for axis in range(3):
+        u, v = (i for i in range(3) if i != axis)
+        for sign in (-1.0, 1.0):
+            p = np.empty(((n + 1) ** 2, 3), np.float32)
+            p[:, axis], p[:, u], p[:, v] = sign * half, a, b
+            faces.append(quad + sum(len(x) for x in verts))
+            verts.append(p)
+    return np.concatenate(verts), np.concatenate(faces).astype(np.int32)
+
+
+def pairs_40k(ds, n_small, out_root, dev):
+    """Object 1's training pairs again with its mesh cut into 40 368
+    faces (and put back after) (the service's 40 000-face budget): timed, then once more under
+    cProfile. The pairs must match the 12-face run's (same count; crops
+    within 2 px per side; XYZ within 2 LSB on >= 99% of the overlapping
+    pixels). Returns launches."""
+    import cProfile
+    import io
+    import pstats
+
+    import numpy as np
+
+    from pix2pose_torch.data.ply import load_ply, save_ply
+    from pix2pose_torch.tools.render_training_pairs import \
+        render_object_pairs
+
+    small_mesh = load_ply(ds.model_ply_path(1))
+    verts, faces = subdivided_cube(40.0, 58)
+    save_ply(ds.model_ply_path(1), verts, faces)
+    reset_counts()
+    t0 = time.perf_counter()
+    n = render_object_pairs(ds, 1, out_root=out_root, device=dev)
+    dt = time.perf_counter() - t0
+    launches = read_counts()["binned_zbuffer"]
+    log(f"phase 5 pairs at {faces.shape[0]} faces: object 1, {n} pairs in "
+        f"{dt:.2f} s ({n / dt:.2f} pairs/s), kernel launches {launches}")
+    if n != n_small or launches == 0:
+        raise AssertionError(f"phase 5: {n} pairs at 40k faces vs "
+                             f"{n_small}, launches {launches}")
+    small = os.path.join(ds.dir, "train_xyz", "01")
+    for k in range(n):
+        a, b = (np.load(os.path.join(d, f"{k:06d}.npy")).astype(np.int64)
+                for d in (small, os.path.join(out_root, "01")))
+        hh, ww = min(a.shape[0], b.shape[0]), min(a.shape[1], b.shape[1])
+        near = (np.abs(a[:hh, :ww, 3:] - b[:hh, :ww, 3:]).max(-1) <= 2)
+        if max(abs(a.shape[0] - hh), abs(b.shape[0] - hh), abs(a.shape[1]
+               - ww), abs(b.shape[1] - ww)) > 2 or near.mean() < 0.99:
+            raise AssertionError(f"phase 5: 40k-face pair {k} differs: "
+                                 f"{a.shape} {b.shape} {near.mean()}")
+    prof = cProfile.Profile()
+    prof.enable()
+    render_object_pairs(ds, 1, out_root=out_root + "_prof", device=dev)
+    prof.disable()
+    save_ply(ds.model_ply_path(1), small_mesh["pts"], small_mesh["faces"])
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).strip_dirs().sort_stats("tottime") \
+        .print_stats(12)
+    log("phase 5 cProfile of that step (host, by own time):")
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"  {line.rstrip()}")
+    return launches
+
+
+def phase5_datagen(dev):
+    """Training-data synthesis at full width; returns its launch counts
+    (the rehearsal set, and object 1's pairs at 40k faces)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.data.ply import load_ply
+    from pix2pose_torch.data.synthetic_bop import CAM_K, \
+        build_rehearsal_dataset
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+    from pix2pose_torch.ops.rasterizer import project_vertices
+    from pix2pose_torch.tools.render_train_views import render_train_split
+    from pix2pose_torch.tools.render_training_pairs import \
+        render_object_pairs
+
+    with tempfile.TemporaryDirectory() as root:
+        reset_counts()
+        t0 = time.perf_counter()
+        entries = build_rehearsal_dataset(root, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ds = BopDataset(root, "rehearsal", train=True)
+        n_pairs, pair_s = {}, {}
+        for obj in (1, 2, 3, 4):
+            ta = time.perf_counter()
+            n_pairs[obj] = render_object_pairs(ds, obj, device=dev)
+            pair_s[obj] = round(time.perf_counter() - ta, 3)
+        t2 = time.perf_counter()
+        counts = read_counts()
+        # before the train views, which add scenes to the train split
+        big = {"binned_zbuffer": pairs_40k(
+            ds, n_pairs[1], os.path.join(root, "xyz_40k"), dev)}
+        reset_counts()
+        t3 = time.perf_counter()
+        n_views = render_train_split(ds, ds.train_dir, device=dev)
+        t4 = time.perf_counter()
+        counts = {k: v + counts[k] for k, v in read_counts().items()}
+        n_ims = len(entries["train"]) + len(entries["test"])
+        log(f"phase 5: dataset {n_ims} images {H}x{W} in {t1 - t0:.2f} s "
+            f"({n_ims / (t1 - t0):.2f} images/s); pairs {n_pairs} in "
+            f"{t2 - t1:.2f} s ({sum(n_pairs.values()) / (t2 - t1):.2f} "
+            f"pairs/s; s per object {pair_s}); {n_views} train views in "
+            f"{t4 - t3:.2f} s; kernel launches {counts}")
+        if counts["binned_zbuffer"] == 0:
+            raise AssertionError("phase 5: synthesis never launched the "
+                                 "binned kernel")
+        for obj, n in n_pairs.items():
+            d = os.path.join(ds.dir, "train_xyz", f"{obj:02d}")
+            if n == 0:
+                raise AssertionError(f"phase 5: object {obj} wrote no pair")
+            with open(os.path.join(d, "meta.json")) as f:
+                if "visual_sym_idx" not in json.load(f):
+                    raise AssertionError(f"phase 5: object {obj} meta.json "
+                                         f"lacks visual_sym_idx")
+            for k in range(n):
+                a = np.load(os.path.join(d, f"{k:06d}.npy"))
+                if (a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 6
+                        or max(a.shape[:2]) > 128):
+                    raise AssertionError(f"phase 5: object {obj} pair {k}: "
+                                         f"{a.dtype} {a.shape}")
+        if n_views != 4 * len(entries["train"]):
+            raise AssertionError(f"phase 5: {n_views} train views")
+        # a few of the dataset's views, kernel vs plain (not counted)
+        K = torch.as_tensor(CAM_K, device=dev)
+        for obj in (1, 2, 3, 4):
+            mesh = load_ply(ds.model_ply_path(obj))
+            _, _, insts = entries["test"][0]
+            R, t = next((R, t) for o, R, t in insts if o == obj)
+            uv, z = project_vertices(
+                torch.as_tensor(mesh["pts"], device=dev)[None],
+                torch.as_tensor(R, device=dev)[None],
+                torch.as_tensor(t, device=dev)[None], K)
+            packed, _, bounds = rc._sorted_tris(
+                uv, z, torch.as_tensor(mesh["faces"], device=dev)[None], H, W)
+            cov, fid_eq, rel = compare_cores(
+                f"phase 5 object {obj}",
+                rc._binned_core_cuda(packed, bounds, H, W),
+                rc._binned_core_plain(packed, bounds, H, W))
+            log(f"phase 5 object {obj}: kernel vs plain covered={cov} "
+                f"fidx_equal={fid_eq:.6f} 1/z_max_rel={rel:.3e}")
+    return counts, big
 
 
 def main() -> int:
@@ -308,14 +594,22 @@ def main() -> int:
         if "ptxas" in line:
             log(f"  {line.strip()}")
 
-    record = phase1_kernel_vs_plain(dev)
-    phase2_oracle(dev)
-    launches = phase3_full_width(dev)
-    log(json.dumps({"kernels": [{
-        "name": "binned_zbuffer", "route": "cuda",
-        "source": "pix2pose_torch/csrc/rasterizer.cu",
-        "replaces": "pix2pose_tpu/ops/rasterizer_pallas.py:296",
-        "launches": launches, **record}]}))
+    rec_k1 = phase1_kernel_vs_plain(dev)
+    by_path = {"serve_oracle": {"binned_zbuffer": phase2_oracle(dev)},
+               "serve_ae": {"binned_zbuffer": phase3_full_width(dev)}}
+    rec_k2, by_path["bench"] = phase4_exhaustive(dev)
+    by_path["datagen"], by_path["pairs_40k"] = phase5_datagen(dev)
+    kernels = []
+    for name, line, rec in (("binned_zbuffer", 296, rec_k1),
+                            ("exhaustive_zbuffer", 47, rec_k2)):
+        paths = {k: v[name] for k, v in by_path.items() if v.get(name)}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pix2pose_torch/csrc/rasterizer.cu",
+            "replaces": f"pix2pose_tpu/ops/rasterizer_pallas.py:{line}",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            **rec})
+    log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,20 @@
-// Binned z-buffer rasterizer for Hopper (sm_90a).
+// Z-buffer rasterizer for Hopper (sm_90a): one per-pixel loop behind two
+// entry points.
 //
-// Replaces: pix2pose_tpu/ops/rasterizer_pallas.py:_binned_kernel (and the
-// _chunk_body it runs), driven there by rasterize_pallas_binned through a
-// (tile, chunk) work list of static capacity.
+// Replaces both TPU kernels of pix2pose_tpu/ops/rasterizer_pallas.py, which
+// share the per-chunk body _chunk_body:
+//   p2p_rasterize_binned      <- _binned_kernel (K1), driven there by
+//                                rasterize_pallas_binned through a (tile,
+//                                chunk) work list of static capacity;
+//   p2p_rasterize_exhaustive  <- _kernel (K2), driven there by
+//                                rasterize_pallas over every (tile, chunk)
+//                                grid step with a chunk-bbox skip.
+// Why one loop serves both: with no capacity, the two TPU host functions
+// compute one function (the binned one equals the exhaustive one whenever
+// its work list does not overflow), and the walk below is the exhaustive
+// walk with the bbox skip: every CTA reads every chunk's bounds and skips
+// chunks that miss its tile. The exhaustive entry keeps K2's contract
+// (frames that tile by 16x128); the binned entry takes any frame size.
 //
 // What it computes. Per pixel (u, v) and hypothesis p, over faces walked in
 // their spatially sorted order: barycentrics a = ca_u*u + ca_v*v + ca_0,
@@ -16,10 +28,13 @@
 //
 // What bounds it on this card. One coverage test per (pixel, face) of
 // every 128-face chunk whose screen bbox overlaps the pixel's tile:
-// 9 multiplies, 8 adds, 3 compares and a select chain per test, all from
-// registers and broadcast shared-memory reads. The loop is FP32-issue
-// bound; memory traffic is the 4.6 KB of coefficients per surviving
-// chunk per CTA and 16 bytes of output per pixel.
+// 6 multiplies, 8 adds or subtracts, 4 compares (three for coverage, one
+// for depth) and a select per test, 18 operations, all from registers and
+// broadcast shared-memory reads. Memory traffic is the 4.6 KB of
+// coefficients per surviving chunk per CTA and 16 bytes of output per
+// pixel. Neither the issue time of these tests nor that traffic accounts
+// for the measured time (PERF.md); a CTA whose tile is crossed by many
+// chunks walks them alone, so a small on-screen mesh loads few CTAs.
 //
 // What the design does about it. One CTA per (8x32 pixel tile,
 // hypothesis), one thread per pixel, the running max carried in registers
@@ -49,7 +64,7 @@ __device__ __forceinline__ float affine(float cu, float cv, float c0,
 }
 
 __global__ void __launch_bounds__(kThreads)
-binned_zbuffer_kernel(const float* __restrict__ packed,   // (P, 9, Fp)
+zbuffer_kernel(const float* __restrict__ packed,   // (P, 9, Fp)
                       const float* __restrict__ bounds,   // (P, nc, 4)
                       float* __restrict__ izb_out,        // (P, H, W)
                       int* __restrict__ fidx_out,
@@ -116,20 +131,39 @@ binned_zbuffer_kernel(const float* __restrict__ packed,   // (P, 9, Fp)
   }
 }
 
+int launch(const float* packed, const float* bounds, float* izb, int* fidx,
+           float* a, float* b, int n_hyp, int fp, int n_chunks, int h, int w,
+           void* stream) {
+  const dim3 block(kTileU, kTileV, 1);
+  const dim3 grid((w + kTileU - 1) / kTileU, (h + kTileV - 1) / kTileV,
+                  n_hyp);
+  zbuffer_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      packed, bounds, izb, fidx, a, b, fp, n_chunks, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Allocates nothing and does not synchronize.
+// Both entries launch on `stream` and return cudaGetLastError() (0 =
+// launched). They allocate nothing and do not synchronize.
 extern "C" int p2p_rasterize_binned(const float* packed, const float* bounds,
                                     float* izb, int* fidx, float* a,
                                     float* b, int n_hyp, int fp,
                                     int n_chunks, int h, int w,
                                     void* stream) {
-  const dim3 block(kTileU, kTileV, 1);
-  const dim3 grid((w + kTileU - 1) / kTileU, (h + kTileV - 1) / kTileV,
-                  n_hyp);
-  binned_zbuffer_kernel<<<grid, block, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      packed, bounds, izb, fidx, a, b, fp, n_chunks, h, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch(packed, bounds, izb, fidx, a, b, n_hyp, fp, n_chunks, h, w,
+                stream);
+}
+
+// K2's contract: h % 16 == 0 and w % 128 == 0 (the TPU kernel's tile), else
+// cudaErrorInvalidValue and nothing is launched. Same outputs otherwise.
+extern "C" int p2p_rasterize_exhaustive(const float* packed,
+                                        const float* bounds, float* izb,
+                                        int* fidx, float* a, float* b,
+                                        int n_hyp, int fp, int n_chunks,
+                                        int h, int w, void* stream) {
+  if (h % 16 != 0 || w % 128 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(packed, bounds, izb, fidx, a, b, n_hyp, fp, n_chunks, h, w,
+                stream);
 }

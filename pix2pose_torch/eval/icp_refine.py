@@ -161,7 +161,7 @@ def stack_meshes(meshes_m: Sequence[tuple], max_faces: int | None = None
     ``max_faces`` cluster-decimates dense meshes first (every hypothesis
     pays for the largest mesh in the bank)."""
     if max_faces is not None:
-        from pix2pose_tpu.data.meshes import decimate_mesh
+        from pix2pose_torch.data.meshes import decimate_mesh
         meshes_m = [decimate_mesh(v, f, max_faces) for v, f in meshes_m]
     v_max = max(np.asarray(v).shape[0] for v, _ in meshes_m)
     f_max = max(np.asarray(f).shape[0] for _, f in meshes_m)
@@ -178,7 +178,7 @@ def stack_meshes(meshes_m: Sequence[tuple], max_faces: int | None = None
 def make_multiframe_icp_refiner(stacked_verts_m, stacked_faces, im_h: int,
                                 im_w: int, n_src: int = 1024,
                                 n_tgt: int = 4096, icp_iters: int = 30,
-                                icp_rounds: int = 2, device=None):
+                                icp_rounds: int = 2, device="cuda"):
     """Refiner over hypotheses spanning several sensor frames: each has an
     object index into the stacked mesh bank and a frame index into the
     sensor stacks; one camera is shared.
@@ -187,7 +187,7 @@ def make_multiframe_icp_refiner(stacked_verts_m, stacked_faces, im_h: int,
     cam_k (3,3), union_masks (P,H,W), depths_m (B,H,W), tgt_pts (B,H,W,3),
     tgt_normals (B,H,W,3)) -> RefineOut`` with a leading P axis. (The JAX
     version's per-hypothesis PRNG keys are gone: sampling is
-    deterministic.)"""
+    deterministic.) The mesh bank lives on ``device``."""
     sv = torch.as_tensor(np.asarray(stacked_verts_m, np.float32),
                          device=device)
     sf = torch.as_tensor(np.asarray(stacked_faces, np.int64), device=device)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from pix2pose_tpu.config import EstimatorConfig
+from pix2pose_torch.config import EstimatorConfig
 from pix2pose_torch.ops import boxes as boxes_ops
 from pix2pose_torch.ops import crop as crop_ops
 from pix2pose_torch.ops import pnp as pnp_ops
@@ -127,17 +127,15 @@ class Pix2PoseEstimator:
     """
 
     def __init__(self, model, cfg: EstimatorConfig = EstimatorConfig(),
-                 pnp_stride: int | None = None, device=None):
+                 pnp_stride: int | None = None, device="cuda"):
         if cfg.max_pnp_points:
             raise NotImplementedError(
                 "max_pnp_points (correspondence compaction) is not ported")
-        self.model = model.eval()
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.pnp_stride = (pnp_stride if pnp_stride is not None
                            else cfg.pnp_stride)
-        if device is None:
-            device = next(model.parameters()).device
-        self.device = torch.device(device)
 
     # ------------------------------------------------------------ inputs
     def _t(self, x, dtype=None):

@@ -1,5 +1,6 @@
 """Normalized-coordinate ("XYZ") colour codec (port of
-:mod:`pix2pose_tpu.ops.color`, the parts the inference path needs).
+:mod:`pix2pose_tpu.ops.color`, the parts inference and training-pair
+rendering need).
 
 Each object's model coordinates are affinely mapped to RGB, so an unlit
 render of the recoloured model is a per-pixel coordinate map (reference
@@ -11,6 +12,27 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def norm_factor_from_vertices(vertices, center: bool = True):
+    """Per-axis (scale, center) for coordinate colorization:
+    ``scale[k] = max |v[:, k] - mean(v[:, k])|``, ``center[k] =
+    mean(v[:, k])``, centers forced to zero when ``center`` is False
+    (reference ``tools/2_1_ply_file_to_3d_coord_model.py:34-47``).
+    (N, 3) vertices -> ((3,), (3,)) float32 tensors on their device."""
+    vertices = torch.as_tensor(vertices, dtype=torch.float32)
+    ct = vertices.mean(dim=0)
+    if not center:
+        ct = torch.zeros_like(ct)
+    scale = torch.abs(vertices - ct).amax(dim=0)
+    return scale, ct
+
+
+def xyz_to_color01(xyz, scale, ct):
+    """Model coordinates -> colour in [0, 1]: ``c = ((x - ct)/scale + 1)/2``
+    (reference ``2_1:50-58``), not clipped (the reference leaves the
+    overshoot of asymmetric-center axes)."""
+    return ((torch.as_tensor(xyz) - ct) / scale + 1.0) * 0.5
 
 
 def color01_to_xyz(color01, scale, ct):

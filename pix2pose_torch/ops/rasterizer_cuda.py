@@ -1,6 +1,6 @@
-"""Binned z-buffer rasterizer: the CUDA kernel, its plain PyTorch version,
-and the host-side set-up they share (port of
-:mod:`pix2pose_tpu.ops.rasterizer_pallas`, the binned path).
+"""Z-buffer rasterizer: the CUDA kernel, its plain PyTorch version, and the
+host-side set-up they share (port of
+:mod:`pix2pose_tpu.ops.rasterizer_pallas`, both kernels).
 
 Host side, in torch for both versions, ported literally from the JAX
 package:
@@ -15,10 +15,16 @@ package:
   perspective-correct from the winning face.
 
 In between, per pixel: the max of interpolated 1/z over covering faces,
-strict ``>``, faces walked in sorted order. :func:`_binned_core_cuda`
-launches ``csrc/rasterizer.cu`` for it; :func:`_binned_core_plain` is the
-same function in PyTorch, used for CPU tensors and as the kernel's
-reference. :func:`rasterize_binned` picks by the tensors' device.
+strict ``>``, faces walked in sorted order. ``csrc/rasterizer.cu`` computes
+it with one kernel behind two entries, one per TPU kernel:
+
+- :func:`rasterize_binned` (``rasterize_pallas_binned``, K1): any frame;
+- :func:`rasterize_exhaustive` (``rasterize_pallas``, K2): frames that tile
+  by 16x128, one mesh or a batch.
+
+Each picks by the tensors' device: CUDA tensors launch the kernel (and add
+one to the entry's ``launches``), CPU tensors run :func:`_binned_core_plain`,
+the same function in PyTorch, which is also the kernel's reference.
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ import torch
 from pix2pose_torch.ops.rasterizer import RenderOut
 from pix2pose_torch.ops.smallmat import first_argmax
 
-TILE_V = 16      # centroid-bin height of the face sort
-TILE_U = 128     # centroid-bin width of the face sort
+TILE_V = 16      # centroid-bin height of the face sort; K2's frame tile
+TILE_U = 128     # centroid-bin width of the face sort; K2's frame tile
 FACE_CHUNK = 128  # faces per chunk; the kernel stages one chunk at a time
 
 _PLAIN_BAND = 16          # rows per band of the plain version
@@ -261,17 +267,18 @@ def load_library():
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
-        fn = lib.p2p_rasterize_binned
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.p2p_rasterize_binned, lib.p2p_rasterize_exhaustive):
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib
 
 
-def _binned_core_cuda(packed, bounds, h: int, w: int):
-    """Launch the CUDA kernel on PyTorch's current stream. Same contract
-    as :func:`_binned_core_plain`; raises on anything it does not take."""
+def _core_cuda(entry: str, packed, bounds, h: int, w: int):
+    """Launch the kernel through the C entry ``entry`` on PyTorch's current
+    stream. Same contract as :func:`_binned_core_plain`; raises on
+    anything it does not take."""
     if packed.device.type != "cuda" or bounds.device != packed.device:
         raise ValueError("packed and bounds must be on one CUDA device")
     if packed.dtype != torch.float32 or bounds.dtype != torch.float32:
@@ -297,15 +304,29 @@ def _binned_core_cuda(packed, bounds, h: int, w: int):
     out_a = torch.empty_like(izb)
     out_b = torch.empty_like(izb)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.p2p_rasterize_binned(
+    err = getattr(lib, entry)(
         packed.data_ptr(), bounds.data_ptr(), izb.data_ptr(),
         fidx.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
         p_n, fp, fp // FACE_CHUNK, h, w, stream)
     if err != 0:
-        raise RuntimeError(f"rasterizer kernel launch failed: CUDA error "
-                           f"{err}")
-    rasterize_binned.launches += 1
+        raise RuntimeError(f"rasterizer kernel launch ({entry}) failed: "
+                           f"CUDA error {err}")
     return izb, fidx, out_a, out_b
+
+
+def _binned_core_cuda(packed, bounds, h: int, w: int):
+    """K1's launch: any frame size."""
+    out = _core_cuda("p2p_rasterize_binned", packed, bounds, h, w)
+    rasterize_binned.launches += 1
+    return out
+
+
+def _exhaustive_core_cuda(packed, bounds, h: int, w: int):
+    """K2's launch: frames that tile by 16x128."""
+    _check_tiles(h, w)
+    out = _core_cuda("p2p_rasterize_exhaustive", packed, bounds, h, w)
+    rasterize_exhaustive.launches += 1
+    return out
 
 
 def _check_inputs(uv, z, faces, attrs):
@@ -362,3 +383,78 @@ def rasterize_binned(uv, z, faces, attrs, h: int, w: int) -> RenderOut:
 
 
 rasterize_binned.launches = 0  # kernel launches, for checks of the path
+
+
+def _check_tiles(h: int, w: int):
+    if h % TILE_V or w % TILE_U:
+        raise ValueError(f"(h={h}, w={w}) must tile by ({TILE_V}, {TILE_U})")
+
+
+def _as_batch(uv, z, faces, attrs):
+    """Add the leading P axis to one mesh (uv (V, 2)); returns the inputs
+    and whether they had one."""
+    if uv.dim() == 2:
+        return (uv[None], z[None], faces[None], attrs[None]), False
+    return (uv, z, faces, attrs), True
+
+
+def _unbatch(out: RenderOut) -> RenderOut:
+    return RenderOut(out.depth[0], out.attr[0], out.mask[0], out.overflow)
+
+
+def rasterize_exhaustive_plain(uv, z, faces, attrs, h: int, w: int
+                               ) -> RenderOut:
+    """:func:`rasterize_exhaustive` with the plain PyTorch z-buffer, on any
+    device."""
+    _check_tiles(h, w)
+    (uv, z, faces, attrs), batched = _as_batch(uv, z, faces, attrs)
+    out = rasterize_binned_plain(uv, z, faces, attrs, h, w)
+    return out if batched else _unbatch(out)
+
+
+def rasterize_exhaustive(uv, z, faces, attrs, h: int, w: int) -> RenderOut:
+    """Rasterize projected meshes into full (h, w) frames: the counterpart
+    of ``rasterize_pallas`` (K2).
+
+    Args:
+      uv: (V, 2) projected pixel coords of one mesh, or a (P, V, 2) batch.
+      z: (V,) or (P, V) camera depths. faces: (F, 3) or (P, F, 3) vertex
+        indices (-1 = padding). attrs: (V, C) or (P, V, C).
+      h, w: frame size; raises ``ValueError`` unless h % 16 == 0 and
+        w % 128 == 0, as the JAX function does.
+
+    CUDA tensors launch the kernel through its exhaustive entry (no
+    fallback: a failed build or launch raises); CPU tensors go to the
+    plain version. ``overflow`` is 0. Returns :class:`RenderOut` with the
+    inputs' leading axes.
+    """
+    _check_tiles(h, w)
+    (uv, z, faces, attrs), batched = _as_batch(uv, z, faces, attrs)
+    _check_inputs(uv, z, faces, attrs)
+    if uv.device.type == "cpu":
+        out = rasterize_binned_plain(uv, z, faces, attrs, h, w)
+    elif uv.device.type == "cuda":
+        uv, z, attrs = (x.to(torch.float32) for x in (uv, z, attrs))
+        packed, faces_s, bounds = _sorted_tris(uv, z, faces, h, w)
+        izb, fidx, a, b = _exhaustive_core_cuda(packed, bounds, h, w)
+        out = _attr_epilogue(izb, fidx, a, b, faces_s, z, attrs)
+    else:
+        raise ValueError(f"no rasterizer for device {uv.device}")
+    return out if batched else _unbatch(out)
+
+
+rasterize_exhaustive.launches = 0  # kernel launches, for checks of the path
+
+
+def render_mesh_exhaustive(verts, faces, attrs, R, t, K, h: int, w: int
+                           ) -> RenderOut:
+    """Pose + project + :func:`rasterize_exhaustive` (the counterpart of
+    ``render_mesh_pallas``). One mesh (V, 3) with a (3, 3)/(3,) pose, or a
+    (P, ...) batch of each; K (3, 3)."""
+    from pix2pose_torch.ops.rasterizer import project_vertices
+
+    K = torch.as_tensor(K, dtype=torch.float32, device=verts.device)
+    uv, z = project_vertices(verts.to(torch.float32), R.to(torch.float32),
+                             t.to(torch.float32), K)
+    return rasterize_exhaustive(uv, z, faces, attrs.to(torch.float32), h, w)
+

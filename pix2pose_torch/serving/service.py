@@ -21,7 +21,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from pix2pose_tpu.config import EstimatorConfig
+from pix2pose_torch.config import EstimatorConfig
 from pix2pose_torch.inference.engine import (Pix2PoseEstimator,
                                              stack_object_params)
 from pix2pose_torch.serving import viz
@@ -87,7 +87,7 @@ class PoseService:
     def __init__(self, cfg: ServingConfig, detector, estimator_model,
                  params_by_obj: dict, obj_params: dict, box_corners: dict,
                  max_det: int = 4, meshes_m: dict | None = None,
-                 device=None):
+                 device="cuda"):
         """Args:
           detector: ``detect(scene_id, im_id, rgb)`` or ``detect(rgb)``.
           estimator_model: the generator ``nn.Module`` (NHWC in/out).
@@ -97,15 +97,13 @@ class PoseService:
           meshes_m: optional {obj_id: (verts_m (V, 3), faces (F, 3))};
             enables depth refinement when ``cfg.icp``.
           device: torch device for the model, tensors and the RANSAC
-            generator (default: the model's).
+            generator; the model is moved there.
         """
         self.cfg = cfg
         self.detector = detector
-        if device is None:
-            device = next(estimator_model.parameters()).device
         self.device = torch.device(device)
         self.est = Pix2PoseEstimator(
-            estimator_model.to(self.device),
+            estimator_model,
             EstimatorConfig(outlier_th=tuple(cfg.outlier_th),
                             inlier_th=cfg.inlier_th,
                             backbone=cfg.backbone),

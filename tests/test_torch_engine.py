@@ -76,7 +76,7 @@ def scene():
     stack = lambda i: jax.tree_util.tree_map(           # noqa: E731
         lambda *x: np.stack([np.asarray(a) for a in x]), *[s[i] for s in s1])
     jax_s1 = [stack(i) for i in range(6)]
-    est = Pix2PoseEstimator(tsyn.OracleGenerator(), CFG)
+    est = Pix2PoseEstimator(tsyn.OracleGenerator(), CFG, device="cpu")
     return model, params, est, rgbs, bbs, jax_s1
 
 

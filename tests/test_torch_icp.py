@@ -145,7 +145,8 @@ def test_multiframe_refiner_matches_jax():
 
     kt = torch.from_numpy(CAM_K)
     dt_ = tgeo.despeckle_depth(torch.from_numpy(depth))[None]
-    refine = tref.make_multiframe_icp_refiner(sv, sf, 480, 640)
+    refine = tref.make_multiframe_icp_refiner(sv, sf, 480, 640,
+                                             device="cpu")
     tout = refine(np.zeros(2, np.int64), np.zeros(2, np.int64),
                   torch.from_numpy(rs), torch.from_numpy(ts), CAM_K,
                   torch.from_numpy(masks), dt_, tgeo.backproject(dt_, kt),

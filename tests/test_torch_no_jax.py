@@ -1,8 +1,10 @@
-"""The port stands alone: pix2pose_torch imports no jax, and chip_smoke.py
-refuses to run (non-zero exit, no result line) without a CUDA device."""
+"""The port stands alone: pix2pose_torch and chip_smoke.py import neither
+jax nor the JAX package, and chip_smoke.py refuses to run (non-zero exit,
+no result line) without a CUDA device."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +22,12 @@ def _env(**extra):
 def test_port_imports_no_jax():
     import pix2pose_torch
 
+    sources = sorted((REPO / "pix2pose_torch").rglob("*.py")) \
+        + [REPO / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import|from)\s+pix2pose_tpu\b", re.M)
+    bad = [str(p) for p in sources if pat.search(p.read_text())]
+    assert not bad, bad
+
     mods = sorted(m.name for m in pkgutil.walk_packages(
         pix2pose_torch.__path__, "pix2pose_torch."))
     assert "pix2pose_torch.ops.rasterizer_cuda" in mods
@@ -27,7 +35,8 @@ def test_port_imports_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules\n"
-            "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                    'pix2pose_tpu'))\n"
             "assert not bad, bad\n"
             "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -34,7 +34,8 @@ def served():
                       inlier_th=0.1, icp=True),
         tsyn.PerFrameDetector(), model, {1: model.state_dict()},
         {1: np.array([40, 40, 40, 0, 0, 0], np.float32)},
-        {1: bbox_corners(verts)}, meshes_m={1: (verts / 1000.0, faces)})
+        {1: bbox_corners(verts)}, meshes_m={1: (verts / 1000.0, faces)},
+        device="cpu")
     frames = []
     for i in range(2):
         R, t = tsyn.pose_with_euler(yaw=0.25 + 0.5 * i, tx=15.0 * i)

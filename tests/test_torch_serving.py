@@ -47,7 +47,7 @@ def _services():
                       inlier_th=0.1, icp=True),
         tsyn.PerFrameDetector(), tmodel, {1: tmodel.state_dict()},
         {1: obj_param}, {1: bbox_corners(verts)},
-        meshes_m={1: (verts / 1000.0, faces)})
+        meshes_m={1: (verts / 1000.0, faces)}, device="cpu")
     return jsvc, tsvc, verts, faces
 
 
