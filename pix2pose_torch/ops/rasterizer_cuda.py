@@ -16,14 +16,19 @@ package:
 
 In between, per pixel: the max of interpolated 1/z over covering faces,
 strict ``>``, faces walked in sorted order. ``csrc/rasterizer.cu`` computes
-it with one kernel behind two entries, one per TPU kernel:
+it with one per-chunk body behind two entries, one per TPU kernel, both
+merging candidates through 64-bit (1/z, face) keys:
 
 - :func:`rasterize_binned` (``rasterize_pallas_binned``, K1): any frame;
+  a (tile, chunk) work list built on the device (its plain version is
+  :func:`_work_list_plain`);
 - :func:`rasterize_exhaustive` (``rasterize_pallas``, K2): frames that tile
-  by 16x128, one mesh or a batch.
+  by 16x128, one mesh or a batch; the tiles x chunks grid split into
+  blocks of 32 chunks.
 
 Each picks by the tensors' device: CUDA tensors launch the kernel (and add
-one to the entry's ``launches``), CPU tensors run :func:`_binned_core_plain`,
+one to the entry's ``launches``; each call enqueues a memset and the build,
+raster and finalize kernels), CPU tensors run :func:`_binned_core_plain`,
 the same function in PyTorch, which is also the kernel's reference.
 """
 
@@ -47,6 +52,8 @@ from pix2pose_torch.ops.smallmat import first_argmax
 TILE_V = 16      # centroid-bin height of the face sort; K2's frame tile
 TILE_U = 128     # centroid-bin width of the face sort; K2's frame tile
 FACE_CHUNK = 128  # faces per chunk; the kernel stages one chunk at a time
+KERNEL_TILE_V = 16  # the CUDA kernel's pixel tile (csrc/rasterizer.cu)
+KERNEL_TILE_U = 32
 
 _PLAIN_BAND = 16          # rows per band of the plain version
 _PLAIN_MAX_ELEMS = 1 << 20  # pixels x faces per plain temporary (4 MB)
@@ -223,6 +230,56 @@ def _binned_core_plain(packed, bounds, h: int, w: int):
     return izb, fidx, out_a, out_b
 
 
+def _work_list_plain(bounds, h: int, w: int, tile_v: int = KERNEL_TILE_V,
+                     tile_u: int = KERNEL_TILE_U):
+    """Plain version of the kernel's device-built (tile, chunk) work list
+    (the port of ``_build_pairs``'s WORK entries, with no capacity).
+
+    Each chunk's bounds (P, nc, 4) become a span of tiles clipped to the
+    frame; off-screen (including NaN) and empty chunks get none. Returns
+    (offsets (P * nc + 1,) int64: the exclusive prefix sum of the per-chunk
+    tile counts over (hypothesis, chunk), the total last; items (N, 4)
+    int64 rows (p, tile_v index, tile_u index, chunk), chunk-major, each
+    decoded from its index by a search in the prefix sums)."""
+    p_n, nc, _ = bounds.shape
+    dev = bounds.device
+    n_tv, n_tu = -(-h // tile_v), -(-w // tile_u)
+    b = bounds.reshape(-1, 4)
+    on = ((b[:, 1] >= 0) & (b[:, 0] <= h - 1) & (b[:, 3] >= 0)
+          & (b[:, 2] <= w - 1) & (b[:, 0] <= b[:, 1]))
+    b = torch.where(on[:, None], b, 0.0)
+
+    def tile(x, t, n):
+        return torch.clamp(torch.floor(x / t), 0, n - 1).to(torch.int64)
+
+    tv0, tv1 = tile(b[:, 0], tile_v, n_tv), tile(b[:, 1], tile_v, n_tv)
+    tu0, tu1 = tile(b[:, 2], tile_u, n_tu), tile(b[:, 3], tile_u, n_tu)
+    nu = tu1 - tu0 + 1
+    count = torch.where(on, (tv1 - tv0 + 1) * nu, 0)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         torch.cumsum(count, 0)])
+    i = torch.arange(int(offsets[-1]), device=dev)
+    g = torch.searchsorted(offsets[1:], i, right=True)
+    k = i - offsets[g]
+    items = torch.stack([g // nc, tv0[g] + k // nu[g], tu0[g] + k % nu[g],
+                         g % nc], dim=1)
+    return offsets, items
+
+
+def work_list_stats(bounds, h: int, w: int) -> dict:
+    """The kernel's K1 work list for these chunk bounds (the counterpart of
+    the JAX package's ``binned_pair_stats``; the port has no capacity to
+    check): ``items`` (tile, chunk) items at the kernel's tile, ``tiles``
+    (hypothesis, tile) pairs with work, and ``longest`` the most chunks on
+    one of them."""
+    _, items = _work_list_plain(bounds, h, w)
+    n_tv, n_tu = -(-h // KERNEL_TILE_V), -(-w // KERNEL_TILE_U)
+    per_tile = torch.bincount((items[:, 0] * n_tv + items[:, 1]) * n_tu
+                              + items[:, 2])
+    return {"items": len(items), "tiles": int((per_tile > 0).sum()),
+            "longest": int(per_tile.max()) if len(items) else 0}
+
+
 # ------------------------------------------------------------ CUDA route
 _lib = None
 _lib_lock = threading.Lock()
@@ -267,24 +324,30 @@ def load_library():
                                    f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.p2p_rasterize_binned, lib.p2p_rasterize_exhaustive):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            fn.restype = i32
+        lib.p2p_build_worklist.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.p2p_build_worklist.restype = i32
+        lib.p2p_scratch_bytes.argtypes = [i32] * 5
+        lib.p2p_scratch_bytes.restype = ctypes.c_size_t
         _lib = lib
         return lib
 
 
-def _core_cuda(entry: str, packed, bounds, h: int, w: int):
-    """Launch the kernel through the C entry ``entry`` on PyTorch's current
-    stream. Same contract as :func:`_binned_core_plain`; raises on
-    anything it does not take."""
+def _checked(packed, bounds, h: int, w: int):
+    """Check the kernel's inputs; returns (library, P, Fp, chunks,
+    scratch buffer)."""
     if packed.device.type != "cuda" or bounds.device != packed.device:
         raise ValueError("packed and bounds must be on one CUDA device")
     if packed.dtype != torch.float32 or bounds.dtype != torch.float32:
         raise TypeError("packed and bounds must be float32")
     if not (packed.is_contiguous() and bounds.is_contiguous()):
         raise ValueError("packed and bounds must be contiguous")
+    if packed.data_ptr() % 16 or bounds.data_ptr() % 16:
+        raise ValueError("packed and bounds must be 16-byte aligned (the "
+                         "kernel copies them in 16-byte pieces)")
     p_n, nine, fp = packed.shape
     if nine != 9 or fp % FACE_CHUNK or fp == 0:
         raise ValueError(f"packed must be (P, 9, k*{FACE_CHUNK}), "
@@ -294,24 +357,56 @@ def _core_cuda(entry: str, packed, bounds, h: int, w: int):
                          f"got {tuple(bounds.shape)}")
     if not (0 < p_n <= 65535 and 0 < h and 0 < w):
         raise ValueError(f"unsupported P={p_n}, h={h}, w={w}")
+    nc = fp // FACE_CHUNK
+    tiles = -(-h // KERNEL_TILE_V) * -(-w // KERNEL_TILE_U)
+    if p_n * nc * tiles >= 2 ** 31:
+        raise ValueError(f"P={p_n} x {nc} chunks x {tiles} tiles overflows "
+                         "the kernel's int32 work-item index")
     if torch.cuda.get_device_capability(packed.device) != (9, 0):
         raise RuntimeError("the rasterizer kernel is built for sm_90a "
                            "(Hopper)")
     lib = load_library()
+    scratch = torch.empty(lib.p2p_scratch_bytes(p_n, fp, nc, h, w),
+                          dtype=torch.uint8, device=packed.device)
+    return lib, p_n, fp, nc, scratch
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"rasterizer kernel launch ({what}) failed: "
+                           f"CUDA error {err}")
+
+
+def _core_cuda(entry: str, packed, bounds, h: int, w: int):
+    """Launch the kernel through the C entry ``entry`` on PyTorch's current
+    stream (one memset and three kernels). Same contract as
+    :func:`_binned_core_plain`; raises on anything it does not take."""
+    lib, p_n, fp, nc, scratch = _checked(packed, bounds, h, w)
     dev = packed.device
     izb = torch.empty((p_n, h, w), dtype=torch.float32, device=dev)
     fidx = torch.empty((p_n, h, w), dtype=torch.int32, device=dev)
     out_a = torch.empty_like(izb)
     out_b = torch.empty_like(izb)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(
+    _raise_on(getattr(lib, entry)(
         packed.data_ptr(), bounds.data_ptr(), izb.data_ptr(),
         fidx.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
-        p_n, fp, fp // FACE_CHUNK, h, w, stream)
-    if err != 0:
-        raise RuntimeError(f"rasterizer kernel launch ({entry}) failed: "
-                           f"CUDA error {err}")
+        scratch.data_ptr(), p_n, fp, nc, h, w, stream), entry)
     return izb, fidx, out_a, out_b
+
+
+def _work_list_cuda(packed, bounds, h: int, w: int):
+    """The kernel's device-built prefix sums over (hypothesis, chunk), as
+    :func:`_work_list_plain` returns them (int64); not counted as a
+    z-buffer launch."""
+    lib, p_n, fp, nc, scratch = _checked(packed, bounds, h, w)
+    offsets = torch.empty(p_n * nc + 1, dtype=torch.int32,
+                          device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    _raise_on(lib.p2p_build_worklist(
+        packed.data_ptr(), bounds.data_ptr(), offsets.data_ptr(),
+        scratch.data_ptr(), p_n, fp, nc, h, w, stream), "p2p_build_worklist")
+    return offsets.to(torch.int64)
 
 
 def _binned_core_cuda(packed, bounds, h: int, w: int):

@@ -24,7 +24,9 @@ kernel's two entries on face coefficients built once per mesh (on the CPU
 both run the plain version, as the wrappers do for CPU tensors). Each of
 ``core_runs`` launches is timed on its own; the median and the spread
 (min, 10th and 90th percentile, max) are printed. Their 1/z buffers must
-be equal. Exits 1 when any check fails.
+be equal. Before them, the binned entry's work list for the mesh is
+printed (``rasterizer_cuda.work_list_stats``: (tile, chunk) items, tiles
+with work, the longest tile list). Exits 1 when any check fails.
 """
 
 from __future__ import annotations
@@ -132,7 +134,8 @@ def run(faces: Sequence[int] = (2400, 40000, 99000), windows: int = 3,
         k: int = 2, core_runs: int = 200, device="cuda", log=print) -> dict:
     """Time every row at every mesh size; returns {"rows": [{faces, row,
     ms, windows_ms, depth_sum} for the frame rows, {faces, row, ms,
-    spread_ms (min, p10, p90, max)} for the core rows], "agree": bool}."""
+    spread_ms (min, p10, p90, max)} for the core rows, {faces, row:
+    "work_list", items, tiles, longest}], "agree": bool}."""
     from pix2pose_torch.ops import rasterizer_cuda as rc
     from pix2pose_torch.ops.rasterizer import project_vertices
 
@@ -165,6 +168,12 @@ def run(faces: Sequence[int] = (2400, 40000, 99000), windows: int = 3,
                  for s in sums.values())
         uv, z = project_vertices(v, R, t, K)
         packed, _, bounds = rc._sorted_tris(uv[None], z[None], f[None], H, W)
+        work = rc.work_list_stats(bounds, H, W)
+        rows.append({"faces": len(fcs), "row": "work_list", **work})
+        log(f"work list: {work['items']} (tile, chunk) items at "
+            f"{rc.KERNEL_TILE_V}x{rc.KERNEL_TILE_U} tiles over "
+            f"{work['tiles']} tiles, longest tile list {work['longest']} "
+            f"chunks")
         izbs = []
         for name, core in _cores(dev):
             izbs.append(core(packed, bounds, H, W)[0])
