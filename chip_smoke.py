@@ -37,12 +37,23 @@ then drives the port's paths through the entry points a user calls:
            Then object 1's pairs again with its cube cut into 40 368
            faces (the service's mesh budget; same pairs to 2 LSB), timed
            and then profiled with cProfile (top host functions printed).
+  phase 6  the serving CLI at full width, as a user starts it: the
+           rehearsal dataset, ``python -m pix2pose_torch colorize-models``
+           on it, seeded checkpoints (one ResNet-50 generator per object,
+           the CenterNet detector at its defaults: ResNet-50 trunk, s2d
+           stem, fused heads), then ``create_server`` with ``--icp``; the
+           6 test frames with depth from 2 concurrent PoseClients. Fails
+           unless every frame has a detection, poses come back finite and
+           K1 ran; prints the request latency (median, p90), the
+           detections per frame, the detector's time on one 480x640
+           frame, and one frame through the service alone without and
+           with depth (detector + engine, then + ICP).
   last     each entry's device operations per call on phase 1's 40 000-
            face sphere, with the device time of each (torch.profiler);
            after the paths, because a profiler session leaves the
            process's later CUDA launches slower.
 
-Each path (phases 2, 3, 4's benchmark and 5) runs with every kernel
+Each path (phases 2, 3, 4's benchmark, 5 and 6) runs with every kernel
 launch counter set to 0 just before it and read just after, and fails if
 a kernel it runs was launched no time. Launches that compare a kernel
 with its plain version are not counted. TF32 is off for matmuls and
@@ -645,6 +656,183 @@ def phase5_datagen(dev):
     return counts, big
 
 
+class CountingDetector:
+    """Wraps the served detector to record the detections of each frame,
+    keyed by the frame's bytes."""
+
+    def __init__(self, detector):
+        self.detector = detector
+        self.counts = {}
+
+    def detect(self, scene_id, im_id, rgb):
+        out = self.detector.detect(scene_id, im_id, rgb)
+        self.counts[rgb.tobytes()] = len(out)
+        return out
+
+
+def seeded_checkpoints(ds, seed):
+    """Seeded inference checkpoints under the dataset, where the serving
+    CLI looks: one ResNet-50 generator per object and the CenterNet
+    detector at the CLI's defaults."""
+    from pix2pose_torch.models import CenterNetDetector, build_generator
+    from pix2pose_torch.utils.checkpoint import export_inference
+    from pix2pose_torch.utils.convert import random_flax_variables
+
+    gen = build_generator("resnet50")
+    for obj in ds.model_ids:
+        v = random_flax_variables(gen, seed + obj)
+        # a low error map everywhere, as in phase 3: every pixel passes the
+        # confidence gates, so PnP and ICP run on every detection
+        v["params"]["head_prob"]["bias"][:] = -4.0
+        export_inference(os.path.join(ds.dir, "pix2pose_weights",
+                                      f"{obj:02d}"), v)
+    v = random_flax_variables(CenterNetDetector(len(ds.model_ids)), seed)
+    p = v["params"]
+    # Seeded heads never pass score_th 0.3 (the heat bias -2.19 gives
+    # p ~ 0.1) and their raw outputs are large: on a rehearsal frame the
+    # heat, wh and off outputs before their bias have mean 35 / -47 / -45
+    # and std 18 / 61 / 14 (seed 100, measured on the CPU). Scaled by 0.01
+    # with heat bias 0, the peaks score p ~ 0.55-0.65; wh bias 12 makes
+    # boxes 12 +- 0.6 grid cells, ~46 px in the 512 input (~43 x 58 px in
+    # the frame); off bias 0.5 puts centers mid-cell.
+    for head, bias in (("heat_out", 0.0), ("wh_out", 12.0),
+                       ("off_out", 0.5)):
+        p[head]["kernel"] *= 0.01
+        p[head]["bias"][:] = bias
+    export_inference(os.path.join(ds.dir, "weight_detection", "centernet"),
+                     v)
+
+
+def phase6_serving_cli(dev, detect_runs: int = 20):
+    """The serving CLI end to end; returns its K1 launches."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.data.synthetic_bop import CAM_K, \
+        build_rehearsal_dataset
+    from pix2pose_torch.serving import PoseClient
+    from pix2pose_torch.serving.__main__ import create_server
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        build_rehearsal_dataset(root, device=dev)
+        cfg = os.path.join(root, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump({"dataset_dir": root}, f)
+        cli(["colorize-models", cfg, "rehearsal"])
+        ds = BopDataset(root, "rehearsal", train=False)
+        seeded_checkpoints(ds, SEED + 100)
+        ros_cfg = os.path.join(root, "ros_config.json")
+        with open(ros_cfg, "w") as f:
+            json.dump({"backbone": "resnet50", "icp": True,
+                       "cam_K": np.asarray(CAM_K).ravel().tolist()}, f)
+        t1 = time.perf_counter()
+        server = create_server([ros_cfg, root, "rehearsal", "--icp",
+                                "--port", "0", "--device", str(dev)])
+        log(f"phase 6: dataset, colorize-models and checkpoints in "
+            f"{t1 - t0:.2f} s, server up in {time.perf_counter() - t1:.2f} s")
+        try:
+            svc = server.frontend.service
+            counting = CountingDetector(svc.detector)
+            svc.detector = counting
+            frames = [(ds.load_rgb(0, i), ds.load_depth(0, i))
+                      for i in range(6)]
+            client = PoseClient(*server.address)
+            try:
+                client.estimate(frames[0][0], depth=frames[0][1])  # warm-up
+            finally:
+                client.close()
+            counting.counts.clear()
+            outs, lat = [None] * len(frames), [None] * len(frames)
+            errors = []
+
+            def run_client(k):
+                c = PoseClient(*server.address)
+                try:
+                    for i in range(k, len(frames), 2):
+                        ta = time.perf_counter()
+                        outs[i] = c.estimate(frames[i][0], depth=frames[i][1])
+                        lat[i] = time.perf_counter() - ta
+                except Exception as e:  # reported after the join
+                    errors.append(repr(e))
+                finally:
+                    c.close()
+
+            reset_counts()
+            threads = [threading.Thread(target=run_client, args=(k,),
+                                        daemon=True) for k in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            launches = read_counts()["binned_zbuffer"]
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"phase 6: clients failed: {errors}")
+            n_det = [counting.counts.get(rgb.tobytes(), 0)
+                     for rgb, _ in frames]
+            n_pose = 0
+            for i, out in enumerate(outs):
+                for p in out["poses"]:
+                    vals = np.asarray(p["R"] + p["t"], np.float64)
+                    if vals.shape != (12,) or not np.isfinite(vals).all():
+                        raise AssertionError(f"phase 6 frame {i}: bad pose "
+                                             f"{p}")
+                    n_pose += 1
+            if min(n_det) == 0 or n_pose == 0 or launches == 0:
+                raise AssertionError(f"phase 6: detections per frame {n_det}"
+                                     f", {n_pose} poses, K1 launches "
+                                     f"{launches}")
+            lat_ms = np.asarray(lat) * 1e3
+
+            def median_ms(fn, runs):
+                times = []
+                for _ in range(runs):
+                    torch.cuda.synchronize()
+                    ta = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - ta) * 1e3)
+                return float(np.median(times)), min(times)
+
+            rgb, depth = frames[0]
+            det_ms = median_ms(lambda: counting.detector.detect(0, 0, rgb),
+                               detect_runs)
+            # its network, decode and copy to the host, without the host's
+            # per-detection box and mask work
+            net_ms = median_ms(lambda: counting.detector._run(rgb),
+                               detect_runs)
+            # one frame through the service alone, without and with depth:
+            # detector + engine, then + sensor prep and ICP refinement
+            rgb_ms = median_ms(lambda: svc.process_many([rgb]), 5)[0]
+            rgbd_ms = median_ms(lambda: svc.process_many([rgb], [depth]),
+                                5)[0]
+        finally:
+            server.close()
+    log(f"phase 6: serve CLI, ResNet-50 AE x {len(ds.model_ids)} objects + "
+        f"CenterNet ResNet-50 detector, 6 frames 480x640 with depth from 2 "
+        f"concurrent clients, --icp; detections per frame {n_det}; "
+        f"{n_pose} finite poses; server batches "
+        f"{[o['server_batch'] for o in outs]}; K1 launches {launches}; "
+        f"request latency ms: median {np.median(lat_ms):.1f}, p90 "
+        f"{np.percentile(lat_ms, 90):.1f}, all "
+        f"{[round(float(x), 1) for x in lat_ms]}; on {card}")
+    log(f"phase 6: TorchDetector.detect on one 480x640 frame: median "
+        f"{det_ms[0]:.2f} ms of {detect_runs} (host clock, synchronized), "
+        f"min {det_ms[1]:.2f} ms, of which network + decode + copy "
+        f"{net_ms[0]:.2f} ms; one frame through PoseService."
+        f"process_many, median of 5: {rgb_ms:.1f} ms without depth "
+        f"(detector + engine; engine ~{rgb_ms - det_ms[0]:.1f} ms), "
+        f"{rgbd_ms:.1f} ms with depth (sensor prep + ICP ~"
+        f"{rgbd_ms - rgb_ms:.1f} ms); on {card}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -677,6 +865,7 @@ def main() -> int:
                "serve_ae": {"binned_zbuffer": phase3_full_width(dev)}}
     rec_k2, in_k2, by_path["bench"] = phase4_exhaustive(dev)
     by_path["datagen"], by_path["pairs_40k"] = phase5_datagen(dev)
+    by_path["serve_cli"] = {"binned_zbuffer": phase6_serving_cli(dev)}
     # Last, after every path: a torch.profiler session leaves the process's
     # later CUDA launches slower, which would show in the host-bound paths.
     for label, core, rec, (packed, bounds) in (

@@ -6,12 +6,16 @@ counterpart; public functions keep its layouts (NHWC images, ``(..., 3, 3)``
 rotations, millimetre translations, metre depth) so the two can be held
 against each other on the same inputs.
 
-What is ported so far is the RGB-D serving path: ``serving`` (TCP server,
-coalescing frontend, :class:`~pix2pose_torch.serving.service.PoseService`)
--> ``inference.engine`` (two-stage AE + PnP-RANSAC) -> ``eval.icp_refine``
-(render + point-to-plane ICP) -> ``ops.rasterizer`` whose full-frame
-renders on a CUDA device run the hand-written binned z-buffer kernel in
-``csrc/rasterizer.cu``.
+What is ported so far: the serving CLI (``python -m pix2pose_torch serve``:
+checkpoints from ``utils.checkpoint``, the CenterNet detector of
+``models.detector`` behind ``inference.torch_detector``) over the RGB-D
+serving path -- ``serving`` (TCP server, coalescing frontend,
+:class:`~pix2pose_torch.serving.service.PoseService`) ->
+``inference.engine`` (two-stage AE, paper or ResNet-50 backbone, +
+PnP-RANSAC) -> ``eval.icp_refine`` (render + point-to-plane ICP) ->
+``ops.rasterizer``, whose full-frame renders on a CUDA device run the
+hand-written z-buffer kernel in ``csrc/rasterizer.cu`` -- and the
+training-data rendering tools (``data.synthetic_bop``, ``tools``).
 
 This package imports ``torch`` and never ``jax``.
 """

@@ -1,0 +1,49 @@
+"""Unified CLI: ``python -m pix2pose_torch <command> [args...]`` (port of
+:mod:`pix2pose_tpu.__main__`, listing the commands the port has).
+
+Each subcommand imports its module lazily, so ``--help`` is instant.
+"""
+
+from __future__ import annotations
+
+import sys
+
+# subcommand -> (module, reference equivalent)
+_COMMANDS = {
+    "colorize-models": ("pix2pose_torch.tools.colorize_models",
+                        "tools/2_1_ply_file_to_3d_coord_model.py"),
+    "render-pairs": ("pix2pose_torch.tools.render_training_pairs",
+                     "tools/2_2_render_pix2pose_training.py"),
+    "render-train-views": ("pix2pose_torch.tools.render_train_views",
+                           "tools/render_training_img.py"),
+    "serve": ("pix2pose_torch.serving.__main__",
+              "ros_kinetic/ros_pix2pose.py (TCP transport here)"),
+}
+
+
+def _usage() -> str:
+    lines = ["usage: python -m pix2pose_torch <command> [args...]", "",
+             "commands (reference equivalent in parentheses):"]
+    for name, (_, ref) in _COMMANDS.items():
+        lines.append(f"  {name:20s} ({ref})")
+    lines.append("")
+    lines.append("run a command with --help for its arguments")
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(_usage())
+        return
+    cmd = argv[0]
+    if cmd not in _COMMANDS:
+        print(f"unknown command: {cmd}\n\n{_usage()}", file=sys.stderr)
+        raise SystemExit(2)
+    import importlib
+
+    importlib.import_module(_COMMANDS[cmd][0]).main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

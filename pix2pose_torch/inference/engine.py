@@ -34,7 +34,7 @@ from pix2pose_torch.ops import boxes as boxes_ops
 from pix2pose_torch.ops import crop as crop_ops
 from pix2pose_torch.ops import pnp as pnp_ops
 from pix2pose_torch.ops.boxes import CropBox
-from pix2pose_torch.ops.color import color01_to_xyz
+from pix2pose_torch.ops.color import color01_to_xyz, tanh_to_color01
 from pix2pose_torch.ops.smallmat import first_argmax
 
 
@@ -248,7 +248,7 @@ class Pix2PoseEstimator:
         fg2 = torch.linalg.vector_norm(dec2, dim=-1) > cfg.gray_norm_th
         # gray pixels decode to colour 0.5 (ref ``:139``)
         dec2 = torch.where(fg2[..., None], dec2, 0.0)
-        xyz01 = torch.clamp((dec2 + 1.0) * 0.5, 0.0, 1.0)
+        xyz01 = tanh_to_color01(dec2)
         cand_ok = cand_ok & (fg2.sum((-2, -1)) >= cfg.min_stage1_px)
 
         vv, uu, in_img = crop_ops.crop_pixel_centers(box2, size)

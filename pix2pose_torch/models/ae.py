@@ -1,12 +1,17 @@
-"""Pix2Pose autoencoder generator, paper backbone (port of
+"""Pix2Pose autoencoder generator, both backbones (port of
 :mod:`pix2pose_tpu.models.ae`).
 
-Reference Keras graph ``pix2pose_model/ae_model.py:70-150``: four stages of
-paired stride-2 5x5 convs (both convs of a stage read the previous stage's
-concat; channels 128/256/256/512 at 64/32/16/8 squared), bottleneck
-Flatten -> Dense(256) -> Dense(8*8*256), three decoder stages of
-ConvTranspose 5x5/2 + skip concat (second conv of the matching encoder
-stage) + 5x5 conv, and two ConvTranspose heads: tanh XYZ and sigmoid error.
+- ``paper`` (reference Keras graph ``pix2pose_model/ae_model.py:70-150``):
+  four stages of paired stride-2 5x5 convs (both convs of a stage read the
+  previous stage's concat; channels 128/256/256/512 at 64/32/16/8
+  squared), bottleneck Flatten -> Dense(256) -> Dense(8*8*256), three
+  decoder stages of ConvTranspose 5x5/2 + skip concat (second conv of the
+  matching encoder stage) + 5x5 conv, and two ConvTranspose heads: tanh
+  XYZ and sigmoid error.
+- ``resnet50`` (BOP'20, ``ae_model.py:175-240``): the encoder is ResNet-50
+  stages 1-3 plus one paired 5x5/2 stage (16 -> 8, 512 channels); the
+  skips are channel slices [:32] / [:128] / [:128] of the stage taps; the
+  bottleneck and decoder are the paper's.
 
 Layout: the public forward takes and returns NHWC like the JAX package;
 inside it runs NCHW for cuDNN. Module names match the flax tree so
@@ -20,6 +25,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from pix2pose_torch.models.resnet50 import ResNet50Trunk
 
 _LEAK = 0.3
 
@@ -92,16 +99,35 @@ class PairedConvEncoder(nn.Module):
         return x, (skips[0], skips[1], skips[2])
 
 
+class ResNetEncoder(nn.Module):
+    """BOP'20 encoder: ResNet-50 taps + one paired stage to 8x8x512
+    (``ae_model.py:178-196``). Returns the bottleneck input and the
+    channel-sliced skips, NCHW."""
+
+    def __init__(self):
+        super().__init__()
+        self.trunk = ResNet50Trunk()
+        self.e4_1 = _ConvBNAct(512, 256, stride=2)
+        self.e4_2 = _ConvBNAct(512, 256, stride=2)
+
+    def forward(self, x):
+        f1, f2, f3 = self.trunk(x)
+        feats = torch.cat([self.e4_1(f3), self.e4_2(f3)], dim=1)
+        return feats, (f1[:, :32], f2[:, :128], f3[:, :128])
+
+
 class AutoEncoder(nn.Module):
     """Generator: (B, 128, 128, 3) NHWC in [-1, 1] -> (xyz (B, 128, 128, 3)
     in [-1, 1], error (B, 128, 128, 1) in [0, 1])."""
 
     def __init__(self, backbone: str = "paper", bottleneck: int = 256):
         super().__init__()
-        if backbone != "paper":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only 'paper' is ported")
-        self.encoder = PairedConvEncoder()
+        if backbone == "paper":
+            self.encoder, skip1 = PairedConvEncoder(), 64
+        elif backbone == "resnet50":
+            self.encoder, skip1 = ResNetEncoder(), 32
+        else:
+            raise ValueError(f"backbone {backbone!r}: 'paper' or 'resnet50'")
         self.fc_enc = nn.Linear(8 * 8 * 512, bottleneck)
         self.fc_dec = nn.Linear(bottleneck, 8 * 8 * 256)
         self.d1 = _DeconvBNAct(256, 256)
@@ -109,7 +135,7 @@ class AutoEncoder(nn.Module):
         self.d2 = _DeconvBNAct(256, 128)
         self.d2_uni = _ConvBNAct(128 + 128, 256)
         self.d3 = _DeconvBNAct(256, 64)
-        self.d3_uni = _ConvBNAct(64 + 64, 128)
+        self.d3_uni = _ConvBNAct(64 + skip1, 128)
         self.head_xyz = _ConvTransposeSame(128, 3)
         self.head_prob = _ConvTransposeSame(128, 1)
 

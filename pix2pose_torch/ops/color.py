@@ -1,6 +1,5 @@
 """Normalized-coordinate ("XYZ") colour codec (port of
-:mod:`pix2pose_tpu.ops.color`, the parts inference and training-pair
-rendering need).
+:mod:`pix2pose_tpu.ops.color`).
 
 Each object's model coordinates are affinely mapped to RGB, so an unlit
 render of the recoloured model is a per-pixel coordinate map (reference
@@ -39,6 +38,26 @@ def color01_to_xyz(color01, scale, ct):
     """Colour in [0, 1] -> model coordinates: ``x = (c*2 - 1)*scale + ct``
     (reference ``recognition.py:198-202``). Broadcasts over leading axes."""
     return (torch.as_tensor(color01) * 2.0 - 1.0) * scale + ct
+
+
+def tanh_to_color01(decoded):
+    """Network tanh output in [-1, 1] -> clipped colour in [0, 1]
+    (reference ``recognition.py:85-88``)."""
+    return torch.clamp((torch.as_tensor(decoded) + 1.0) * 0.5, 0.0, 1.0)
+
+
+def colorize_vertices_u8(vertices, scale=None, ct=None) -> np.ndarray:
+    """uint8 vertex colours of a ``models_xyz`` PLY: the float32 colour
+    times 255, truncated (reference ``2_1:59-61``, a float -> uint8 cast).
+    Norm factors default to :func:`norm_factor_from_vertices`."""
+    vertices = torch.as_tensor(np.asarray(vertices, np.float32))
+    if scale is None or ct is None:
+        s, c = norm_factor_from_vertices(vertices)
+        scale = s if scale is None else scale
+        ct = c if ct is None else ct
+    col = xyz_to_color01(vertices, torch.as_tensor(np.asarray(scale)),
+                         torch.as_tensor(np.asarray(ct)))
+    return (col.numpy() * 255).astype(np.uint8)
 
 
 def obj_param_from_norm_factor(model_param: dict) -> np.ndarray:

@@ -1,1 +1,1 @@
-"""Weight conversion and synthetic-scene helpers."""
+"""Weight conversion, inference checkpoints and synthetic-scene helpers."""

@@ -1,7 +1,9 @@
-"""Flax generator variables -> torch ``state_dict``.
+"""Flax variables -> torch ``state_dict``, for every network the port has:
+the generator (paper and ResNet-50 backbones) and the CenterNet detector
+(ResNet-50 or tiny trunk, fused, unfused or shared heads).
 
 The port's modules carry the flax tree's names, so conversion is a
-renaming plus three layout changes:
+renaming plus three layout changes, and nothing is guessed from shapes:
 
 - ``nn.Conv`` kernels are HWIO; torch wants OIHW;
 - ``nn.ConvTranspose`` kernels are (kh, kw, in, out) and are applied
@@ -23,6 +25,9 @@ import torch
 
 # flax module names whose 4-D kernel belongs to a ConvTranspose
 _TRANSPOSED = ("deconv", "head_xyz", "head_prob")
+# flax ``bias_init`` constants that are not zero (the detector's heat and
+# seg outputs start at p ~ 0.1)
+_BIAS_INIT = {"heat_out": -2.19, "seg_out": -2.19}
 
 
 def _leaves(tree, prefix=()):
@@ -35,8 +40,8 @@ def _leaves(tree, prefix=()):
 
 def flax_to_state_dict(variables: dict) -> dict:
     """``{'params': ..., 'batch_stats': ...}`` (numpy leaves) -> a
-    ``state_dict`` that ``AutoEncoder.load_state_dict(strict=True)``
-    accepts."""
+    ``state_dict`` that the matching port module's
+    ``load_state_dict(strict=True)`` accepts."""
     out = {}
     for path, leaf in _leaves(variables.get("params", {})):
         mod, name = path[:-1], path[-1]
@@ -65,9 +70,10 @@ def flax_to_state_dict(variables: dict) -> dict:
 
 def random_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Seeded He-normal variables in FLAX layout for ``model``'s
-    architecture (kernels in flax axis order, zero biases, unit BatchNorm
-    scale and variance, zero mean), as nested dicts of numpy arrays.
-    Stands in for a trained checkpoint where only shapes matter."""
+    architecture (kernels in flax axis order, biases at flax's init: zero,
+    or -2.19 for the detector's heat and seg outputs; unit BatchNorm scale
+    and variance, zero mean), as nested dicts of numpy arrays. Stands in
+    for a trained checkpoint where only shapes matter."""
     rng = np.random.default_rng(seed)
     variables: dict = {"params": {}, "batch_stats": {}}
 
@@ -95,7 +101,8 @@ def random_flax_variables(model: torch.nn.Module, seed: int) -> dict:
         elif name == "weight":                    # BatchNorm
             put("params", mod + ["scale"], np.ones(shape))
         elif name == "bias":
-            put("params", mod + ["bias"], np.zeros(shape))
+            put("params", mod + ["bias"],
+                np.full(shape, _BIAS_INIT.get(mod[-1], 0.0)))
         elif name == "running_mean":
             put("batch_stats", mod + ["mean"], np.zeros(shape))
         elif name == "running_var":
