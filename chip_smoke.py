@@ -48,12 +48,31 @@ then drives the port's paths through the entry points a user calls:
            detections per frame, the detector's time on one 480x640
            frame, and one frame through the service alone without and
            with depth (detector + engine, then + ICP).
-  last     each entry's device operations per call on phase 1's 40 000-
-           face sphere, with the device time of each (torch.profiler);
-           after the paths, because a profiler session leaves the
-           process's later CUDA launches slower.
+  phase 7  evaluation. 7a, with a closed-form truth: the cube BOP set
+           (1 scene x 3 images, 480x640) built on the card, the oracle
+           generator and the GT detector; BopEvaluator (score_type 2,
+           ViVo, max_det 4), serial and image_chunk=2, every row within
+           2 deg and 2% of t_z of GT and the two drives equal;
+           BopEvaluatorICP (batched) within 5 deg and 15 mm;
+           evaluate_bop of the GT poses AR > 0.97, and of both
+           evaluators' rows. 7b, at full width through the CLIs on phase
+           6's rehearsal set and checkpoints: run-detector, eval with its
+           detections (score_type 2, instance masks), eval with the GT
+           detector, eval-icp (4 ResNet-50 generators, ICP); every CSV
+           row finite, every AR in [0, 1], the GT-pose AR no more than
+           0.01 below the JAX package's (``tools/rehearsal_gt_ar.py``).
+           Prints each CLI's wall, the CSVs' per-image wall, evaluate_bop
+           seconds per image, detections and ICP hypotheses per image and
+           K1's launches on each path.
+  last     eval-icp once more under torch.profiler (device busy share,
+           K1's share, costliest device operations), then each entry's
+           device operations per call on phase 1's 40 000-face sphere,
+           with the device time of each (torch.profiler); after the
+           paths, because a profiler session leaves the process's later
+           CUDA launches slower.
 
-Each path (phases 2, 3, 4's benchmark, 5 and 6) runs with every kernel
+Each path (phases 2, 3, 4's benchmark, 5, 6, and phase 7's evaluators,
+eval-icp CLI and metrics) runs with every kernel
 launch counter set to 0 just before it and read just after, and fails if
 a kernel it runs was launched no time. Launches that compare a kernel
 with its plain version are not counted. TF32 is off for matmuls and
@@ -703,9 +722,26 @@ def seeded_checkpoints(ds, seed):
                      v)
 
 
-def phase6_serving_cli(dev, detect_runs: int = 20):
-    """The serving CLI end to end; returns its K1 launches."""
-    import tempfile
+def seeded_mask_head(ds):
+    """Raise the seeded detector's mask logits in its checkpoint: the
+    CondInst controller's last bias set to 20 and its kernel scaled by
+    0.01, so every top-k instance mask covers its box (the seeded
+    controller's masks are empty, and an empty instance mask leaves the
+    masked engine no foreground)."""
+    from pix2pose_torch.utils.checkpoint import (export_inference,
+                                                 load_inference_params)
+
+    wdir = os.path.join(ds.dir, "weight_detection", "centernet")
+    v = load_inference_params(wdir)
+    v["params"]["ctrl_out"]["kernel"] *= 0.01
+    v["params"]["ctrl_out"]["bias"][-1] = 20.0
+    export_inference(wdir, v)
+
+
+def phase6_serving_cli(dev, root, detect_runs: int = 20):
+    """The serving CLI end to end on the rehearsal dataset, colorized
+    models and seeded checkpoints it writes under ``root`` (phase 7b
+    evaluates the same); returns its K1 launches."""
     import threading
 
     import numpy as np
@@ -719,101 +755,100 @@ def phase6_serving_cli(dev, detect_runs: int = 20):
     from pix2pose_torch.serving.__main__ import create_server
 
     card = card_line()
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        build_rehearsal_dataset(root, device=dev)
-        cfg = os.path.join(root, "cfg.json")
-        with open(cfg, "w") as f:
-            json.dump({"dataset_dir": root}, f)
-        cli(["colorize-models", cfg, "rehearsal"])
-        ds = BopDataset(root, "rehearsal", train=False)
-        seeded_checkpoints(ds, SEED + 100)
-        ros_cfg = os.path.join(root, "ros_config.json")
-        with open(ros_cfg, "w") as f:
-            json.dump({"backbone": "resnet50", "icp": True,
-                       "cam_K": np.asarray(CAM_K).ravel().tolist()}, f)
-        t1 = time.perf_counter()
-        server = create_server([ros_cfg, root, "rehearsal", "--icp",
-                                "--port", "0", "--device", str(dev)])
-        log(f"phase 6: dataset, colorize-models and checkpoints in "
-            f"{t1 - t0:.2f} s, server up in {time.perf_counter() - t1:.2f} s")
+    t0 = time.perf_counter()
+    build_rehearsal_dataset(root, device=dev)
+    cfg = os.path.join(root, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"dataset_dir": root}, f)
+    cli(["colorize-models", cfg, "rehearsal"])
+    ds = BopDataset(root, "rehearsal", train=False)
+    seeded_checkpoints(ds, SEED + 100)
+    ros_cfg = os.path.join(root, "ros_config.json")
+    with open(ros_cfg, "w") as f:
+        json.dump({"backbone": "resnet50", "icp": True,
+                   "cam_K": np.asarray(CAM_K).ravel().tolist()}, f)
+    t1 = time.perf_counter()
+    server = create_server([ros_cfg, root, "rehearsal", "--icp",
+                            "--port", "0", "--device", str(dev)])
+    log(f"phase 6: dataset, colorize-models and checkpoints in "
+        f"{t1 - t0:.2f} s, server up in {time.perf_counter() - t1:.2f} s")
+    try:
+        svc = server.frontend.service
+        counting = CountingDetector(svc.detector)
+        svc.detector = counting
+        frames = [(ds.load_rgb(0, i), ds.load_depth(0, i))
+                  for i in range(6)]
+        client = PoseClient(*server.address)
         try:
-            svc = server.frontend.service
-            counting = CountingDetector(svc.detector)
-            svc.detector = counting
-            frames = [(ds.load_rgb(0, i), ds.load_depth(0, i))
-                      for i in range(6)]
-            client = PoseClient(*server.address)
-            try:
-                client.estimate(frames[0][0], depth=frames[0][1])  # warm-up
-            finally:
-                client.close()
-            counting.counts.clear()
-            outs, lat = [None] * len(frames), [None] * len(frames)
-            errors = []
-
-            def run_client(k):
-                c = PoseClient(*server.address)
-                try:
-                    for i in range(k, len(frames), 2):
-                        ta = time.perf_counter()
-                        outs[i] = c.estimate(frames[i][0], depth=frames[i][1])
-                        lat[i] = time.perf_counter() - ta
-                except Exception as e:  # reported after the join
-                    errors.append(repr(e))
-                finally:
-                    c.close()
-
-            reset_counts()
-            threads = [threading.Thread(target=run_client, args=(k,),
-                                        daemon=True) for k in range(2)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            launches = read_counts()["binned_zbuffer"]
-            if errors or any(t.is_alive() for t in threads):
-                raise AssertionError(f"phase 6: clients failed: {errors}")
-            n_det = [counting.counts.get(rgb.tobytes(), 0)
-                     for rgb, _ in frames]
-            n_pose = 0
-            for i, out in enumerate(outs):
-                for p in out["poses"]:
-                    vals = np.asarray(p["R"] + p["t"], np.float64)
-                    if vals.shape != (12,) or not np.isfinite(vals).all():
-                        raise AssertionError(f"phase 6 frame {i}: bad pose "
-                                             f"{p}")
-                    n_pose += 1
-            if min(n_det) == 0 or n_pose == 0 or launches == 0:
-                raise AssertionError(f"phase 6: detections per frame {n_det}"
-                                     f", {n_pose} poses, K1 launches "
-                                     f"{launches}")
-            lat_ms = np.asarray(lat) * 1e3
-
-            def median_ms(fn, runs):
-                times = []
-                for _ in range(runs):
-                    torch.cuda.synchronize()
-                    ta = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - ta) * 1e3)
-                return float(np.median(times)), min(times)
-
-            rgb, depth = frames[0]
-            det_ms = median_ms(lambda: counting.detector.detect(0, 0, rgb),
-                               detect_runs)
-            # its network, decode and copy to the host, without the host's
-            # per-detection box and mask work
-            net_ms = median_ms(lambda: counting.detector._run(rgb),
-                               detect_runs)
-            # one frame through the service alone, without and with depth:
-            # detector + engine, then + sensor prep and ICP refinement
-            rgb_ms = median_ms(lambda: svc.process_many([rgb]), 5)[0]
-            rgbd_ms = median_ms(lambda: svc.process_many([rgb], [depth]),
-                                5)[0]
+            client.estimate(frames[0][0], depth=frames[0][1])  # warm-up
         finally:
-            server.close()
+            client.close()
+        counting.counts.clear()
+        outs, lat = [None] * len(frames), [None] * len(frames)
+        errors = []
+
+        def run_client(k):
+            c = PoseClient(*server.address)
+            try:
+                for i in range(k, len(frames), 2):
+                    ta = time.perf_counter()
+                    outs[i] = c.estimate(frames[i][0], depth=frames[i][1])
+                    lat[i] = time.perf_counter() - ta
+            except Exception as e:  # reported after the join
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+        reset_counts()
+        threads = [threading.Thread(target=run_client, args=(k,),
+                                    daemon=True) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launches = read_counts()["binned_zbuffer"]
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"phase 6: clients failed: {errors}")
+        n_det = [counting.counts.get(rgb.tobytes(), 0)
+                 for rgb, _ in frames]
+        n_pose = 0
+        for i, out in enumerate(outs):
+            for p in out["poses"]:
+                vals = np.asarray(p["R"] + p["t"], np.float64)
+                if vals.shape != (12,) or not np.isfinite(vals).all():
+                    raise AssertionError(f"phase 6 frame {i}: bad pose "
+                                         f"{p}")
+                n_pose += 1
+        if min(n_det) == 0 or n_pose == 0 or launches == 0:
+            raise AssertionError(f"phase 6: detections per frame {n_det}"
+                                 f", {n_pose} poses, K1 launches "
+                                 f"{launches}")
+        lat_ms = np.asarray(lat) * 1e3
+
+        def median_ms(fn, runs):
+            times = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                ta = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - ta) * 1e3)
+            return float(np.median(times)), min(times)
+
+        rgb, depth = frames[0]
+        det_ms = median_ms(lambda: counting.detector.detect(0, 0, rgb),
+                           detect_runs)
+        # its network, decode and copy to the host, without the host's
+        # per-detection box and mask work
+        net_ms = median_ms(lambda: counting.detector._run(rgb),
+                           detect_runs)
+        # one frame through the service alone, without and with depth:
+        # detector + engine, then + sensor prep and ICP refinement
+        rgb_ms = median_ms(lambda: svc.process_many([rgb]), 5)[0]
+        rgbd_ms = median_ms(lambda: svc.process_many([rgb], [depth]),
+                            5)[0]
+    finally:
+        server.close()
     log(f"phase 6: serve CLI, ResNet-50 AE x {len(ds.model_ids)} objects + "
         f"CenterNet ResNet-50 detector, 6 frames 480x640 with depth from 2 "
         f"concurrent clients, --icp; detections per frame {n_det}; "
@@ -833,7 +868,383 @@ def phase6_serving_cli(dev, detect_runs: int = 20):
     return launches
 
 
+def rot_err_deg(Ra, Rb) -> float:
+    import numpy as np
+
+    c = (np.trace(np.asarray(Ra, np.float64).T @ Rb) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
+def gt_results(ds, target_list):
+    """Every GT instance of the target images as a BOP result row."""
+    rows = []
+    for s, i, _, _ in target_list:
+        for g in ds.scene_gt(s)[i]:
+            rows.append({"scene_id": s, "im_id": i, "obj_id": g["obj_id"],
+                         "score": 1.0, "R": g["R"], "t": g["t"]})
+    return rows
+
+
+def timed_ar(label, rows, ds, dev, target_list=None):
+    """evaluate_bop on ``rows`` with its wall time per image; fails unless
+    every AR lies in [0, 1]. Returns the AR dict."""
+    import torch
+
+    from pix2pose_torch.eval.metrics import evaluate_bop
+
+    t0 = time.perf_counter()
+    out = evaluate_bop(rows, ds, target_list=target_list, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_img = len({(r["scene_id"], r["im_id"]) for r in rows}) or 1
+    ars = {k: round(v, 6) for k, v in out.items() if k.startswith("AR")}
+    log(f"phase 7 metrics {label}: {ars} over {len(rows)} rows, "
+        f"evaluate_bop {dt / n_img:.3f} s per image")
+    if not all(0.0 <= v <= 1.0 for v in ars.values()):
+        raise AssertionError(f"phase 7 metrics {label}: AR outside [0, 1]: "
+                             f"{ars}")
+    return out
+
+
+class HypothesisCount:
+    """While installed, counts the detection slots the engine estimates
+    (``engine``: valid slots of each ``Pix2PoseEstimator._estimate``) and
+    the hypotheses the ICP refiner is given (``icp``: P of each
+    ``icp_refine._refine_body``)."""
+
+    def __enter__(self):
+        from pix2pose_torch.eval import icp_refine
+        from pix2pose_torch.inference.engine import Pix2PoseEstimator
+
+        self.engine = self.icp = 0
+        body, estimate = icp_refine._refine_body, \
+            Pix2PoseEstimator._estimate
+
+        def counted_body(verts_m, *args, **kw):
+            self.icp += verts_m.shape[0]
+            return body(verts_m, *args, **kw)
+
+        def counted_estimate(est, params, rgbs, bboxes, det_valid, *args,
+                             **kw):
+            self.engine += int(det_valid.sum())
+            return estimate(est, params, rgbs, bboxes, det_valid, *args,
+                            **kw)
+
+        self._saved = [(icp_refine, "_refine_body", body),
+                       (Pix2PoseEstimator, "_estimate", estimate)]
+        icp_refine._refine_body = counted_body
+        Pix2PoseEstimator._estimate = counted_estimate
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class RenderCapture:
+    """While installed, keeps the inputs (uv, z, faces, h, w) of the K1
+    render with the largest ``key(uv, faces)`` (the first of equals),
+    so that :func:`check_render` can hold the kernel against the plain
+    version on a render the path really made. Reads shapes only (no
+    device sync)."""
+
+    def __init__(self, key):
+        self.key, self.best, self.args, self.calls = key, None, None, 0
+
+    def __enter__(self):
+        from pix2pose_torch.ops import rasterizer_cuda as rc
+
+        self._saved = sorted_tris = rc._sorted_tris
+
+        def capturing(uv, z, faces, h, w):
+            self.calls += 1
+            k = self.key(uv, faces)
+            if self.best is None or k > self.best:
+                self.best, self.args = k, (uv, z, faces, h, w)
+            return sorted_tris(uv, z, faces, h, w)
+
+        rc._sorted_tris = capturing
+        return self
+
+    def __exit__(self, *exc):
+        from pix2pose_torch.ops import rasterizer_cuda as rc
+
+        rc._sorted_tris = self._saved
+
+
+def check_render(label, cap: RenderCapture, p=None, padded=False):
+    """The captured render through the kernel and through the plain
+    version (not counted: call it after the path's counts are read);
+    fails unless all four outputs are bit-equal, and unless the render
+    has ``p`` hypotheses and, with ``padded``, padded (-1) faces."""
+    from pix2pose_torch.ops import rasterizer_cuda as rc
+
+    if cap.args is None:
+        raise AssertionError(f"{label}: no render captured")
+    uv, z, faces, h, w = cap.args
+    n_pad = int((faces < 0).any(-1).sum())
+    if (p is not None and uv.shape[0] != p) or (padded and n_pad == 0):
+        raise AssertionError(f"{label}: captured P={uv.shape[0]} with "
+                             f"{n_pad} padded faces")
+    packed, _, bounds = rc._sorted_tris(uv, z, faces, h, w)
+    cov = compare_cores(label, rc._binned_core_cuda(packed, bounds, h, w),
+                        rc._binned_core_plain(packed, bounds, h, w))
+    log(f"{label}: a render of the path (of {cap.calls}), P={uv.shape[0]} "
+        f"x {faces.shape[1]} faces ({n_pad} padded) at {h}x{w}, kernel vs "
+        f"plain covered={cov}, all four outputs bit-equal")
+
+
+def phase7a_oracle(dev):
+    """Evaluation with a closed-form truth: the cube BOP set (1 scene x 3
+    images at 480x640) built on the card, the oracle generator and the GT
+    detector. Returns the K1 launches of the set's build (cube_dataset),
+    of the evaluators (eval_oracle) and of evaluate_bop (metrics)."""
+    import tempfile
+
+    import numpy as np
+
+    from pix2pose_torch.config import EvalConfig
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.eval.bop_eval import BopEvaluator
+    from pix2pose_torch.eval.bop_eval_icp import BopEvaluatorICP
+    from pix2pose_torch.inference.detector import GtDetector
+    from pix2pose_torch.inference.engine import Pix2PoseEstimator
+    from pix2pose_torch.utils.synthetic import (OracleGenerator,
+                                                build_cube_dataset,
+                                                cube_mesh)
+
+    with tempfile.TemporaryDirectory() as root:
+        reset_counts()
+        entries = build_cube_dataset(root, n_scenes=1, ims_per_scene=3,
+                                     device=dev)
+        dataset_launches = read_counts()["binned_zbuffer"]
+        ds = BopDataset(root, "cubes", train=False)
+        gt = {(s, i): (R, t) for s, i, R, t in entries}
+        cfg = EvalConfig(dataset_dir=root, score_type=2, task_type=2,
+                         cand_factor=1.0, outlier_th=(0.1, 0.2, 0.3),
+                         inlier_th=0.1)
+        model = OracleGenerator()
+        est = Pix2PoseEstimator(model, cfg.estimator(0), device=dev)
+        params = {1: {k: v.to(dev) for k, v in model.state_dict().items()}}
+        op = {1: np.array([40, 40, 40, 0, 0, 0], np.float32)}
+
+        def check(label, rows, deg, mm_or_frac):
+            if len(rows) != len(entries):
+                raise AssertionError(f"phase 7a {label}: {len(rows)} rows")
+            errs = []
+            for r in rows:
+                R_gt, t_gt = gt[(r["scene_id"], r["im_id"])]
+                e_r = rot_err_deg(r["R"], R_gt)
+                e_t = float(np.linalg.norm(r["t"] - t_gt))
+                bar = (mm_or_frac * t_gt[2] if mm_or_frac < 1
+                       else mm_or_frac)
+                errs.append((round(e_r, 3), round(e_t, 3)))
+                if not (e_r < deg and e_t < bar):
+                    raise AssertionError(f"phase 7a {label}: im {r['im_id']}"
+                                         f" {e_r:.2f} deg, {e_t:.2f} mm")
+            log(f"phase 7a {label}: {len(rows)} rows, (deg, mm) to GT "
+                f"{errs}, times {[round(r['time'], 4) for r in rows]} s")
+
+        reset_counts()
+        runs = {}
+        for chunk in (None, 2):
+            ev = BopEvaluator(ds, cfg, est, params, op,
+                              GtDetector(ds, jitter=6, seed=3), max_det=4)
+            ev.warmup()
+            runs[chunk] = ev.run(seed=5, image_chunk=chunk)
+            check(f"eval image_chunk={chunk}", runs[chunk], 2.0, 0.02)
+        for a, b in zip(runs[None], runs[2]):
+            if ((a["scene_id"], a["im_id"], a["obj_id"], a["score"])
+                    != (b["scene_id"], b["im_id"], b["obj_id"], b["score"])
+                    or not np.allclose(a["t"], b["t"], atol=1e-2)):
+                raise AssertionError("phase 7a: serial and chunked rows "
+                                     "differ")
+        ev_icp = BopEvaluatorICP(ds, cfg, est, params, op,
+                                 {1: cube_mesh(40.0)},
+                                 GtDetector(ds, jitter=4), max_det=2)
+        rows_icp = ev_icp.run()
+        check("eval-icp", rows_icp, 5.0, 15.0)
+        launches = read_counts()["binned_zbuffer"]
+
+        reset_counts()
+        ar_gt = timed_ar("cubes GT poses", gt_results(
+            ds, [(s, i, [1], [1]) for s, i, _, _ in entries]), ds, dev)
+        timed_ar("cubes eval rows", runs[None], ds, dev)
+        timed_ar("cubes eval-icp rows", rows_icp, ds, dev)
+        metrics_launches = read_counts()["binned_zbuffer"]
+    if ar_gt["AR"] <= 0.97:
+        raise AssertionError(f"phase 7a: GT-pose AR {ar_gt['AR']}")
+    if launches == 0 or metrics_launches == 0:
+        raise AssertionError(f"phase 7a: K1 launches {launches} (eval), "
+                             f"{metrics_launches} (metrics)")
+    log(f"phase 7a: K1 launches {dataset_launches} (cube set), {launches} "
+        f"(evaluators: eval serial and chunked, eval-icp), "
+        f"{metrics_launches} (evaluate_bop)")
+    return dataset_launches, launches, metrics_launches
+
+
+# AR of the GT poses of the rehearsal set's test split by the JAX
+# package's evaluate_bop on the CPU, as ``tools/rehearsal_gt_ar.py``
+# prints it: every GT instance is visible, so its VSD, MSSD and MSPD
+# errors are 0 at every threshold
+JAX_REHEARSAL_GT_AR = 1.0
+
+
+def csv_stats(label, path, n_img):
+    """Load a BOP CSV, fail unless every row is finite; log the per-image
+    wall (the ``time`` column). Returns the rows."""
+    import numpy as np
+
+    from pix2pose_torch.data.bop import load_bop_results
+
+    rows = load_bop_results(path)
+    for r in rows:
+        vals = np.concatenate([r["R"].ravel(), r["t"], [r["score"],
+                                                        r["time"]]])
+        if vals.shape != (14,) or not np.isfinite(vals).all():
+            raise AssertionError(f"phase 7b {label}: bad row {r}")
+    per_img = sorted({(r["scene_id"], r["im_id"]): r["time"]
+                      for r in rows}.values())
+    if not rows:
+        raise AssertionError(f"phase 7b {label}: no rows")
+    log(f"phase 7b {label}: {len(rows)} rows over {len(per_img)} of "
+        f"{n_img} images, all finite; per-image wall (CSV time column) "
+        f"median {np.median(per_img):.3f} s, max {max(per_img):.3f} s")
+    return rows
+
+
+def phase7b_cli(dev, root):
+    """Evaluation at full width through the CLIs, on the rehearsal set
+    and checkpoints phase 6 served (the detector's masks raised by
+    :func:`seeded_mask_head`): run-detector, eval with its detections
+    (score_type 2, instance masks), eval with the GT
+    detector, eval-icp; evaluate_bop on every CSV and on the GT poses.
+    Holds the kernel against the plain version on one render of each
+    K1 path (eval-icp's largest batched refine render, with the padded
+    mesh bank; a P=2 VSD render of the largest mesh). Returns the K1
+    launches of eval-icp and of evaluate_bop."""
+    import os
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.data.bop import BopDataset, get_target_list
+
+    card = card_line()
+    ds = BopDataset(root, "rehearsal", train=False)
+    seeded_mask_head(ds)
+    targets = get_target_list(os.path.join(ds.dir,
+                                           "test_targets_bop19.json"))
+    n_img = len(targets)
+    cfgs = {}
+    for run in ("det", "gt", "icp"):
+        cfgs[run] = os.path.join(root, f"cfg_eval_{run}.json")
+        with open(cfgs[run], "w") as f:
+            json.dump({"dataset_dir": root, "backbone": "resnet50",
+                       "score_type": 2, "task_type": 2,
+                       "path_to_output": os.path.join(root, f"out_{run}")},
+                      f)
+    det_json = os.path.join(root, "detections.json")
+    dev_arg = ["--device", str(dev)]
+
+    def timed(args):
+        t0 = time.perf_counter()
+        cli(args + dev_arg)
+        return time.perf_counter() - t0
+
+    t_det = timed(["run-detector", cfgs["det"], "rehearsal", "--out",
+                   det_json])
+    with open(det_json) as f:
+        dets = json.load(f)
+    log(f"phase 7b run-detector: {len(dets)} detections over {n_img} "
+        f"images ({len(dets) / n_img:.1f} per image, all with masks: "
+        f"{all('mask_rle' in d for d in dets)}) in {t_det:.2f} s")
+    walls, hyps, caps = {}, {}, {}
+    for label, args in (("eval --detections", ["eval", cfgs["det"],
+                                               "--detections", det_json]),
+                        ("eval GT detector", ["eval", cfgs["gt"]]),
+                        ("eval-icp", ["eval-icp", cfgs["icp"]])):
+        reset_counts()
+        with HypothesisCount() as hyps[label], \
+                RenderCapture(lambda uv, faces: uv.shape[0]) as caps[label]:
+            walls[label] = timed(args[:2] + ["rehearsal"] + args[2:])
+        launches = read_counts()["binned_zbuffer"]
+        log(f"phase 7b {label}: {walls[label]:.2f} s of command wall, "
+            f"{hyps[label].engine} detection slots estimated "
+            f"({hyps[label].engine / n_img:.1f} per image), "
+            f"{hyps[label].icp} ICP hypotheses "
+            f"({hyps[label].icp / n_img:.1f} per image), K1 launches "
+            f"{launches}; on {card}")
+    icp_launches = launches
+    if hyps["eval GT detector"].icp or not hyps["eval-icp"].icp:
+        raise AssertionError("phase 7b: ICP ran in the RGB eval or not in "
+                             "eval-icp")
+
+    rows = {label: csv_stats(label, os.path.join(
+                root, f"out_{run}", f"{name}_rehearsal-test.csv"), n_img)
+            for label, run, name in (
+                ("eval --detections", "det", "pix2pose-torch"),
+                ("eval GT detector", "gt", "pix2pose-torch"),
+                ("eval-icp", "icp", "pix2pose-torch-icp"))}
+    reset_counts()
+    with RenderCapture(lambda uv, faces: faces.shape[1]) as vsd_cap:
+        ar_gt = timed_ar("rehearsal GT poses", gt_results(ds, targets), ds,
+                         dev, targets)
+        for label, r in rows.items():
+            timed_ar(f"rehearsal {label}", r, ds, dev, targets)
+    metrics_launches = read_counts()["binned_zbuffer"]
+    check_render("phase 7b eval-icp", caps["eval-icp"], padded=True)
+    check_render("phase 7b metrics VSD", vsd_cap, p=2)
+    if ar_gt["AR"] < JAX_REHEARSAL_GT_AR - 0.01:
+        raise AssertionError(f"phase 7b: GT-pose AR {ar_gt['AR']} below the "
+                             f"JAX package's {JAX_REHEARSAL_GT_AR} - 0.01")
+    if icp_launches == 0 or metrics_launches == 0:
+        raise AssertionError(f"phase 7b: K1 launches {icp_launches} "
+                             f"(eval-icp), {metrics_launches} (metrics)")
+    log(f"phase 7b: K1 launches {icp_launches} (eval-icp), "
+        f"{metrics_launches} (evaluate_bop); GT-pose AR {ar_gt['AR']:.6f} "
+        f"(JAX package {JAX_REHEARSAL_GT_AR}); on {card}")
+    return icp_launches, metrics_launches
+
+
+def eval_icp_device_share(dev, root):
+    """Phase 7b's eval-icp once more under torch.profiler (CUDA activity
+    only): the device time of all its operations and of K1's three
+    kernels (build, raster, finalize; the memsets are not told apart)
+    against the command's wall, and its costliest device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pix2pose_torch.__main__ import main as cli
+
+    cfg = os.path.join(root, "cfg_eval_icp.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli(["eval-icp", cfg, "rehearsal", "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            ops[e.key[:60]] = ops.get(e.key[:60], 0.0) \
+                + e.device_time_total / 1e6
+    busy = sum(ops.values())
+    # K1's kernels by their names, parsed as device_breakdown parses them
+    # (a key may start "void (anonymous namespace)::")
+    k1 = sum(e.device_time_total / 1e6 for e in prof.key_averages()
+             if e.key.split("::")[-1].split("(")[0].strip()
+             in ("build_kernel", "binned_raster", "finalize_kernel"))
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+    log(f"phase 7b eval-icp under torch.profiler: {wall:.2f} s wall, device "
+        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%, idle "
+        f"{100 - 100 * busy / wall:.1f}%), K1 kernels {k1 * 1e3:.2f} ms "
+        f"({100 * k1 / wall:.3f}% of the wall); costliest device "
+        f"operations (s): {[(k, round(v, 4)) for k, v in top]}; on "
+        f"{card_line()}")
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -865,9 +1276,19 @@ def main() -> int:
                "serve_ae": {"binned_zbuffer": phase3_full_width(dev)}}
     rec_k2, in_k2, by_path["bench"] = phase4_exhaustive(dev)
     by_path["datagen"], by_path["pairs_40k"] = phase5_datagen(dev)
-    by_path["serve_cli"] = {"binned_zbuffer": phase6_serving_cli(dev)}
-    # Last, after every path: a torch.profiler session leaves the process's
-    # later CUDA launches slower, which would show in the host-bound paths.
+    with tempfile.TemporaryDirectory() as root:
+        by_path["serve_cli"] = {"binned_zbuffer": phase6_serving_cli(dev,
+                                                                     root)}
+        cube_set, oracle, metrics_a = phase7a_oracle(dev)
+        icp, metrics_b = phase7b_cli(dev, root)
+        # Last, after every path: a torch.profiler session leaves the
+        # process's later CUDA launches slower, which would show in the
+        # host-bound paths.
+        eval_icp_device_share(dev, root)
+    by_path["cube_dataset"] = {"binned_zbuffer": cube_set}
+    by_path["eval_oracle"] = {"binned_zbuffer": oracle}
+    by_path["eval_icp"] = {"binned_zbuffer": icp}
+    by_path["metrics"] = {"binned_zbuffer": metrics_a + metrics_b}
     for label, core, rec, (packed, bounds) in (
             ("phase 1 sphere", rasterizer_cuda._binned_core_cuda, rec_k1,
              in_k1),

@@ -14,8 +14,12 @@ serving path -- ``serving`` (TCP server, coalescing frontend,
 ``inference.engine`` (two-stage AE, paper or ResNet-50 backbone, +
 PnP-RANSAC) -> ``eval.icp_refine`` (render + point-to-plane ICP) ->
 ``ops.rasterizer``, whose full-frame renders on a CUDA device run the
-hand-written z-buffer kernel in ``csrc/rasterizer.cu`` -- and the
-training-data rendering tools (``data.synthetic_bop``, ``tools``).
+hand-written z-buffer kernel in ``csrc/rasterizer.cu`` -- the BOP
+evaluation (``python -m pix2pose_torch eval`` / ``eval-icp`` /
+``run-detector``: ``eval.bop_eval``, ``eval.bop_eval_icp`` and the
+BOP'19 metrics of ``eval.metrics``, whose VSD renders run the same
+kernel) and the training-data rendering tools (``data.synthetic_bop``,
+``tools``).
 
 This package imports ``torch`` and never ``jax``.
 """

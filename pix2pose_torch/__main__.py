@@ -16,8 +16,14 @@ _COMMANDS = {
                      "tools/2_2_render_pix2pose_training.py"),
     "render-train-views": ("pix2pose_torch.tools.render_train_views",
                            "tools/render_training_img.py"),
+    "eval": ("pix2pose_torch.eval.bop_eval",
+             "tools/5_evaluation_bop_basic.py"),
+    "eval-icp": ("pix2pose_torch.eval.bop_eval_icp",
+                 "tools/5_evaluation_bop_icp3d.py"),
     "serve": ("pix2pose_torch.serving.__main__",
               "ros_kinetic/ros_pix2pose.py (TCP transport here)"),
+    "run-detector": ("pix2pose_torch.tools.run_detector",
+                     "tools/mask_rcnn_util.py inference path"),
 }
 
 

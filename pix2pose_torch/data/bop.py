@@ -239,6 +239,18 @@ def get_target_list(target_path: str):
             for (s, i) in order]
 
 
+def target_list_from_linemod_split(split_path: str, obj_id: int,
+                                   scene_id: int | None = None):
+    """Build a target list from a LineMOD-style per-object split file, a
+    plain text file of test image ids, one per line (the reference's
+    checked-in ``linemod_splits/*.txt`` fixtures; SiSo task). The scene id
+    defaults to the object id (LM's layout)."""
+    scene = obj_id if scene_id is None else scene_id
+    with open(split_path) as f:
+        ids = [int(line.strip()) for line in f if line.strip()]
+    return [(scene, im_id, [obj_id], [1]) for im_id in ids]
+
+
 def save_bop_results(path: str, results: Sequence[dict]):
     """Write the BOP result CSV:
     ``scene_id,im_id,obj_id,score,R,t,time`` with R as 9 and t as 3

@@ -1,6 +1,5 @@
 """Batched per-hypothesis depth refinement + depth-consistency scoring
-(port of :mod:`pix2pose_tpu.eval.icp_refine`, the multi-frame refiner the
-serving path uses).
+(port of :mod:`pix2pose_tpu.eval.icp_refine`).
 
 Reference ``tools/5_evaluation_bop_icp3d.py:41-94,471-491``: render the
 mesh at the hypothesis pose, lift rendered and sensor depth to clouds,
@@ -9,7 +8,18 @@ per-pixel depth agreement ``sum(max(0, 0.02 - |dz|)) / 0.02`` over the
 detection mask. Every hypothesis of a batch is refined together: the
 renders go through :func:`pix2pose_torch.ops.rasterizer.render_mesh` with
 a leading hypothesis axis (one kernel launch per render round on a CUDA
-device). Clouds are fixed-size, deterministic, evenly strided samples.
+device). Clouds are fixed-size, deterministic, evenly strided samples, so
+the JAX version's per-hypothesis PRNG keys are gone.
+
+Three entry points, all over :func:`_refine_body`:
+
+- :func:`make_icp_refiner`: one object mesh, one hypothesis per call
+  (the reference's serial loop; the RGB-D evaluator's serial path);
+- :func:`make_batch_icp_refiner`: meshes stacked on an object axis
+  (:func:`stack_meshes`), a batch of hypotheses of one sensor frame, each
+  with its object index (the evaluator's batched path);
+- :func:`make_multiframe_icp_refiner`: the same over several sensor
+  frames, each hypothesis with a frame index (the serving path).
 """
 
 from __future__ import annotations
@@ -154,6 +164,53 @@ def _refine_body(verts_m, faces, im_h: int, im_w: int, n_src: int,
         overflow=overflow + rout_ref.overflow)
 
 
+def make_icp_refiner(verts_m, faces, im_h: int, im_w: int,
+                     n_src: int = 1024, n_tgt: int = 4096,
+                     icp_iters: int = 30, icp_rounds: int = 2,
+                     device="cuda"):
+    """Refine+score for one object mesh (vertices in metres), one
+    hypothesis per call.
+
+    Returns ``refine(R (3,3), t_mm (3,), cam_k, union_mask (H,W),
+    depth_m (H,W), tgt_pts (H,W,3), tgt_normals (H,W,3)) -> RefineOut``
+    with unbatched fields. The mesh lives on ``device``."""
+    batch = make_batch_icp_refiner(
+        np.asarray(verts_m, np.float32)[None], np.asarray(faces)[None],
+        im_h, im_w, n_src, n_tgt, icp_iters, icp_rounds, device)
+
+    def refine(R, t_mm, cam_k, union_mask, depth_m, tgt_pts,
+               tgt_normals) -> RefineOut:
+        out = batch([0], R[None], t_mm[None], cam_k, union_mask[None],
+                    depth_m, tgt_pts, tgt_normals)
+        return RefineOut(*(x[0] for x in out))
+
+    return refine
+
+
+def make_batch_icp_refiner(stacked_verts_m, stacked_faces, im_h: int,
+                           im_w: int, n_src: int = 1024, n_tgt: int = 4096,
+                           icp_iters: int = 30, icp_rounds: int = 2,
+                           device="cuda"):
+    """Refine+score a batch of hypotheses of ONE sensor frame, each with
+    its object index into the stacked mesh bank (:func:`stack_meshes`).
+
+    Returns ``refine_batch(obj_idx (P,), R (P,3,3), t_mm (P,3), cam_k,
+    union_masks (P,H,W), depth_m (H,W), tgt_pts (H,W,3), tgt_normals
+    (H,W,3)) -> RefineOut`` with a leading P axis: the multi-frame
+    refiner with every hypothesis on frame 0."""
+    multi = make_multiframe_icp_refiner(
+        stacked_verts_m, stacked_faces, im_h, im_w, n_src, n_tgt,
+        icp_iters, icp_rounds, device)
+
+    def refine_batch(obj_idx, R, t_mm, cam_k, union_masks, depth_m,
+                     tgt_pts, tgt_normals) -> RefineOut:
+        frame_idx = torch.zeros(len(obj_idx), dtype=torch.int64)
+        return multi(obj_idx, frame_idx, R, t_mm, cam_k, union_masks,
+                     depth_m[None], tgt_pts[None], tgt_normals[None])
+
+    return refine_batch
+
+
 def stack_meshes(meshes_m: Sequence[tuple], max_faces: int | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:
     """Pad and stack [(verts_m (V,3), faces (F,3)), ...] to
@@ -185,9 +242,8 @@ def make_multiframe_icp_refiner(stacked_verts_m, stacked_faces, im_h: int,
 
     Returns ``refine(obj_idx (P,), frame_idx (P,), R (P,3,3), t_mm (P,3),
     cam_k (3,3), union_masks (P,H,W), depths_m (B,H,W), tgt_pts (B,H,W,3),
-    tgt_normals (B,H,W,3)) -> RefineOut`` with a leading P axis. (The JAX
-    version's per-hypothesis PRNG keys are gone: sampling is
-    deterministic.) The mesh bank lives on ``device``."""
+    tgt_normals (B,H,W,3)) -> RefineOut`` with a leading P axis. The mesh
+    bank lives on ``device``."""
     sv = torch.as_tensor(np.asarray(stacked_verts_m, np.float32),
                          device=device)
     sf = torch.as_tensor(np.asarray(stacked_faces, np.int64), device=device)

@@ -19,6 +19,14 @@ Where the JAX package ``vmap``ped over images and detections, the stages
 here carry (B, N) axes; objects (different generator weights) are a
 Python loop. The stages are separate methods so each can be held against
 the JAX computation.
+
+Optional per-detection INSTANCE masks (``det_masks``, an extension of the
+JAX package beyond the reference's bbox-only ``est_pose``): when two
+instances of one object overlap, the occluded instance's crop is
+dominated by its neighbour's pixels. With masks, each detection's mask is
+cropped into its own stage-1 and stage-2 windows on the device, and the
+stage-1 foreground and the PnP correspondences are restricted to the
+detection's own instance. None reproduces the reference.
 """
 
 from __future__ import annotations
@@ -111,11 +119,40 @@ def _stage2_mask_on_grid(fg_prob, box1: CropBox, box2: CropBox,
             & in_u[..., None, None, :])
 
 
+def _crop_masks(det_masks, box: CropBox, size: int):
+    """Instance masks (B, N, H, W) cropped into each detection's own
+    window (B, N boxes) without antialiasing, thresholded at 0.5
+    (``engine.py:316-322,389-394`` of the JAX package)."""
+    b, n, h, w = det_masks.shape
+    crops = crop_ops.crop_resize(
+        det_masks.reshape(b * n, h, w, 1).to(torch.float32),
+        box.map(lambda x: x.reshape(b * n, 1)), size, False)
+    return crops.reshape(b, n, size, size) > 0.5
+
+
 def stack_object_params(params_list):
     """Stack per-object generator state dicts on a leading object axis
     (all objects share one architecture)."""
     return {k: torch.stack([p[k] for p in params_list])
             for k in params_list[0]}
+
+
+def estimators_for_objects(model, eval_cfg, model_ids,
+                           pnp_stride: int | None = None, device="cuda"):
+    """{obj_id: Pix2PoseEstimator}, one per object, deduped by resolved
+    config: a list-of-lists ``outlier_th`` resolves per object like the
+    reference's one graph per object
+    (``5_evaluation_bop_basic.py:164-170,206-225``); objects whose
+    resolved configs are equal share one estimator."""
+    cache: dict = {}
+    out = {}
+    for idx, obj_id in enumerate(model_ids):
+        ecfg = eval_cfg.estimator(idx)
+        if ecfg not in cache:
+            cache[ecfg] = Pix2PoseEstimator(model, ecfg, pnp_stride,
+                                            device=device)
+        out[obj_id] = cache[ecfg]
+    return out
 
 
 class Pix2PoseEstimator:
@@ -139,8 +176,11 @@ class Pix2PoseEstimator:
 
     # ------------------------------------------------------------ inputs
     def _t(self, x, dtype=None):
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
-                               else x, device=self.device, dtype=dtype)
+        if not torch.is_tensor(x):
+            x = np.asarray(x)
+            if not x.flags.writeable:  # e.g. a decoded PNG
+                x = x.copy()
+        return torch.as_tensor(x, device=self.device, dtype=dtype)
 
     def _apply(self, params, x):
         if params is None:
@@ -148,33 +188,71 @@ class Pix2PoseEstimator:
         return functional_call(self.model, params, (x,))
 
     # ------------------------------------------------------------ public
+    def _masks(self, det_masks):
+        return None if det_masks is None else self._t(det_masks, torch.bool)
+
     @torch.no_grad()
     def __call__(self, params, rgb, bboxes, det_valid, cam_k, obj_param,
-                 generator=None) -> PoseEstimate:
+                 generator=None, det_masks=None) -> PoseEstimate:
         """One image: rgb (H, W, 3) raw, bboxes (N, 4) [v1, u1, v2, u2],
         det_valid (N,), cam_k (3, 3), obj_param (6,) [scale_xyz, ct_xyz]
-        mm. Fields carry a leading N axis."""
-        out = self._estimate(params, self._t(rgb)[None],
-                             self._t(bboxes)[None], self._t(det_valid)[None],
-                             self._t(cam_k, torch.float32)[None],
-                             self._t(obj_param, torch.float32), generator)
+        mm; ``det_masks`` optionally (N, H, W) instance masks. Fields
+        carry a leading N axis."""
+        return _map(self.estimate_batch(
+            params, self._t(rgb)[None], self._t(bboxes)[None],
+            self._t(det_valid)[None], self._t(cam_k, torch.float32)[None],
+            obj_param, generator,
+            None if det_masks is None else self._masks(det_masks)[None]),
+            lambda x: x[0])
+
+    @torch.no_grad()
+    def estimate_batch(self, params, rgbs, bboxes, det_valid, cam_ks,
+                       obj_param, generator=None, det_masks=None
+                       ) -> PoseEstimate:
+        """B images of one object: rgbs (B, H, W, 3), bboxes (B, N, 4),
+        det_valid (B, N), cam_ks (B, 3, 3), ``det_masks`` optionally
+        (B, N, H, W). ``generator`` is one ``torch.Generator`` or a
+        sequence of B, one per image, each drawing that image's RANSAC
+        sets as a call on the image alone would. Fields carry (B, N, ...)
+        axes."""
+        return self._estimate(params, self._t(rgbs), self._t(bboxes),
+                              self._t(det_valid),
+                              self._t(cam_ks, torch.float32),
+                              self._t(obj_param, torch.float32), generator,
+                              det_masks=self._masks(det_masks))
+
+    @torch.no_grad()
+    def estimate_objects(self, stacked_params, rgb, bboxes, det_valid,
+                         cam_k, obj_params, generator=None, outlier_th=None,
+                         det_masks=None) -> PoseEstimate:
+        """Objects of one image: :meth:`estimate_objects_images` with one
+        image. bboxes (O, N, 4), det_valid (O, N), obj_params (O, 6),
+        ``det_masks`` optionally (O, N, H, W). Fields carry (O, N, ...)
+        axes."""
+        out = self.estimate_objects_images(
+            stacked_params, self._t(rgb)[None], self._t(bboxes)[None],
+            self._t(det_valid)[None], self._t(cam_k, torch.float32)[None],
+            obj_params, generator, outlier_th,
+            None if det_masks is None else self._masks(det_masks)[None])
         return _map(out, lambda x: x[0])
 
     @torch.no_grad()
     def estimate_objects_images(self, stacked_params, rgbs, bboxes,
                                 det_valid, cam_ks, obj_params,
-                                generator=None, outlier_th=None
-                                ) -> PoseEstimate:
+                                generator=None, outlier_th=None,
+                                det_masks=None) -> PoseEstimate:
         """Images x objects: rgbs (B, H, W, 3), bboxes (B, O, N, 4),
         det_valid (B, O, N), cam_ks (B, 3, 3), obj_params (O, 6),
         stacked_params (:func:`stack_object_params`, leading O axis, or
-        None for a weightless model); ``outlier_th`` optionally (O, T).
-        Fields carry (B, O, N, ...) axes."""
+        None for a weightless model); ``outlier_th`` optionally (O, T);
+        ``det_masks`` optionally (B, O, N, H, W). Fields carry
+        (B, O, N, ...) axes."""
         rgbs = self._t(rgbs)
         bboxes = self._t(bboxes)
         det_valid = self._t(det_valid)
         cam_ks = self._t(cam_ks, torch.float32)
         obj_params = self._t(obj_params, torch.float32)
+        det_masks = self._masks(det_masks)
         n_obj = bboxes.shape[1]
         if outlier_th is None:
             outlier_th = [self.cfg.outlier_th] * n_obj
@@ -182,16 +260,18 @@ class Pix2PoseEstimator:
         for o in range(n_obj):
             params = (None if stacked_params is None else
                       {k: v[o] for k, v in stacked_params.items()})
-            outs.append(self._estimate(params, rgbs, bboxes[:, o],
-                                       det_valid[:, o], cam_ks,
-                                       obj_params[o], generator,
-                                       outlier_th[o]))
+            outs.append(self._estimate(
+                params, rgbs, bboxes[:, o], det_valid[:, o], cam_ks,
+                obj_params[o], generator, outlier_th[o],
+                None if det_masks is None else det_masks[:, o]))
         return _stack(outs, dim=1)
 
     # ------------------------------------------------------------ stages
-    def stage1(self, params, rgb_n, bboxes) -> Stage1:
+    def stage1(self, params, rgb_n, bboxes, det_masks=None) -> Stage1:
         """Crop, generator pass, foreground, centroid and stage-2 window.
-        rgb_n (B, H, W, 3) normalized; bboxes (B, N, 4)."""
+        rgb_n (B, H, W, 3) normalized; bboxes (B, N, 4); ``det_masks``
+        optionally (B, N, H, W) bool instance masks, which restrict the
+        foreground to each detection's own instance."""
         cfg, size = self.cfg, self.cfg.im_size
         b, im_h, im_w = rgb_n.shape[:3]
         n = bboxes.shape[1]
@@ -201,6 +281,8 @@ class Pix2PoseEstimator:
         dec1 = dec1.reshape(b, n, size, size, 3)
         prob1 = prob1.reshape(b, n, size, size)
         fg1 = torch.linalg.vector_norm(dec1, dim=-1) > cfg.gray_norm_th
+        if det_masks is not None:
+            fg1 = fg1 & _crop_masks(det_masks, box1, size)
         n_init = fg1.sum((-2, -1))
 
         # foreground bbox & centroid are threshold-independent (reference
@@ -240,9 +322,11 @@ class Pix2PoseEstimator:
             cand_ok
 
     def correspondences(self, dec2, prob2, box2: CropBox, obj_param,
-                        cand_ok) -> Correspondences:
+                        cand_ok, det_masks=None) -> Correspondences:
         """Grid 2D-3D correspondences from the stage-2 pass. dec2
-        (B, N, T, S, S, 3), prob2 (B, N, T, S, S)."""
+        (B, N, T, S, S, 3), prob2 (B, N, T, S, S); ``det_masks``
+        optionally (B, N, H, W) restricts them to each detection's own
+        instance."""
         cfg, size = self.cfg, self.cfg.im_size
         b, n, n_th = dec2.shape[:3]
         fg2 = torch.linalg.vector_norm(dec2, dim=-1) > cfg.gray_norm_th
@@ -259,6 +343,9 @@ class Pix2PoseEstimator:
                                 obj_param[3:])
         pnp_valid = (sub(fg2) & (sub(prob2) < cfg.inlier_th)
                      & sub(in_img)[:, :, None])
+        if det_masks is not None:
+            pnp_valid = pnp_valid & sub(_crop_masks(det_masks, box2,
+                                                    size))[:, :, None]
         img_pts = torch.stack([sub(uu), sub(vv)], dim=-1)[:, :, None] \
             .expand(b, n, n_th, gs, gs, 2)
         c = b * n * n_th
@@ -271,7 +358,9 @@ class Pix2PoseEstimator:
     def solve(self, corr: Correspondences, cam_ks, generator,
               sample_idx=None) -> pnp_ops.PnPResult:
         """PnP-RANSAC over all B*N*T candidates; fields reshaped to
-        (B, N, T, ...). cam_ks (B, 3, 3)."""
+        (B, N, T, ...). cam_ks (B, 3, 3). ``generator``: one
+        ``torch.Generator``, or a sequence of B, one per image (each
+        image's sets are then those of a call on that image alone)."""
         cfg = self.cfg
         b, n, n_th = corr.cand_ok.shape
         k_c = cam_ks[:, None, None].expand(b, n, n_th, 3, 3) \
@@ -335,7 +424,8 @@ class Pix2PoseEstimator:
             area_scale=win_area / float(size * size))
 
     def _estimate(self, params, rgbs, bboxes, det_valid, cam_ks, obj_param,
-                  generator, outlier_th=None) -> PoseEstimate:
+                  generator, outlier_th=None, det_masks=None
+                  ) -> PoseEstimate:
         """All stages for B images x N detection slots of one object."""
         size = self.cfg.im_size
         th_o = torch.as_tensor(
@@ -345,14 +435,14 @@ class Pix2PoseEstimator:
         n_th = th_o.shape[0]
         # normalize once: (x - 128)/128 (``recognition.py:77``)
         rgb_n = (rgbs.to(torch.float32) - 128.0) / 128.0
-        s1 = self.stage1(params, rgb_n, bboxes)
+        s1 = self.stage1(params, rgb_n, bboxes, det_masks)
         stage2_in, cand_ok = self.stage2_inputs(rgb_n, s1, th_o)
         dec2, prob2 = self._apply(params,
                                   stage2_in.reshape(-1, size, size, 3))
         dec2 = dec2.reshape(b, n, n_th, size, size, 3)
         prob2 = prob2.reshape(b, n, n_th, size, size)
         corr = self.correspondences(dec2, prob2, s1.box2, obj_param,
-                                    cand_ok)
+                                    cand_ok, det_masks)
         res = self.solve(corr, cam_ks, generator)
         return self.select(s1, corr, res, cam_ks, det_valid.to(torch.bool))
 

@@ -202,8 +202,9 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
       img_pts: (C, N, 2) pixel coordinates (u, v).
       valid: (C, N) bool correspondence masks.
       K: (3, 3) intrinsics, or (C, 3, 3) per candidate.
-      generator: ``torch.Generator`` on the points' device (unused when
-        ``sample_idx`` is given).
+      generator: ``torch.Generator`` on the points' device, or a
+        sequence of G of them, one per consecutive group of C/G
+        candidates (unused when ``sample_idx`` is given).
       quality: optional (C, N) trust scores (higher = better), enabling
         PROSAC-style sampling.
       iters: hypotheses, split into iters//2 sets of ``sample_k`` points
@@ -253,10 +254,23 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
 
     n_min = iters // 2
     if sample_idx is None:
-        idx_a = _sample_minimal_sets(generator, valid, n_min, sample_k,
-                                     quality)
-        idx_b = _sample_minimal_sets(generator, valid, iters - n_min,
-                                     sample_k_big, quality)
+        # one generator, or one per equal-sized group of candidates: a
+        # group's sets are then those of a call on that group alone
+        gens = generator if isinstance(generator, (list, tuple)) \
+            else [generator]
+        if c % len(gens):
+            raise ValueError(f"{c} candidates do not split into "
+                             f"{len(gens)} equal groups")
+        per = c // len(gens)
+        sets = []
+        for i, g in enumerate(gens):
+            rows = slice(i * per, (i + 1) * per)
+            q = None if quality is None else quality[rows]
+            sets.append((
+                _sample_minimal_sets(g, valid[rows], n_min, sample_k, q),
+                _sample_minimal_sets(g, valid[rows], iters - n_min,
+                                     sample_k_big, q)))
+        idx_a, idx_b = (torch.cat(x) for x in zip(*sets))
     else:
         idx_a, idx_b = (torch.as_tensor(i, device=dev).to(torch.int64)
                         for i in sample_idx)

@@ -22,8 +22,6 @@ given.
 
 from __future__ import annotations
 
-import json
-import os
 from typing import Sequence
 
 
@@ -50,48 +48,34 @@ def create_server(argv: Sequence[str] | None = None):
                    help="torch device of the models and kernels")
     args = p.parse_args(argv)
 
-    import torch
+    from pix2pose_torch.utils.cli import (load_generators, load_norm_params,
+                                          load_torch_detector,
+                                          require_device)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is "
-                         f"available (pass --device cpu to serve on the CPU)")
+    device = require_device(args.device)
 
     from pix2pose_torch.data.bop import BopDataset
     from pix2pose_torch.data.ply import load_ply
-    from pix2pose_torch.inference.torch_detector import TorchDetector
-    from pix2pose_torch.models import CenterNetDetector, build_generator
-    from pix2pose_torch.ops.color import obj_param_from_norm_factor
+    from pix2pose_torch.models import build_generator
     from pix2pose_torch.serving.server import PoseServer
     from pix2pose_torch.serving.service import PoseService, ServingConfig
     from pix2pose_torch.serving.viz import bbox_corners
-    from pix2pose_torch.utils import checkpoint as ckpt_util
-    from pix2pose_torch.utils.convert import flax_to_state_dict
 
     cfg = ServingConfig.load(args.ros_cfg)
     if args.icp:
         cfg.icp = True
     ds = BopDataset(args.dataset_dir, args.dataset, train=False)
-    with open(os.path.join(ds.dir, "models_xyz", args.norm_factor)) as f:
-        norm = json.load(f)
 
     model = build_generator(cfg.backbone)
-    params_by_obj, obj_params, corners, meshes_m = {}, {}, {}, {}
     # cfg.obj_labels (reference ros_config "obj_labels") filters which
     # objects serve; empty = every object with trained weights
     wanted = set(cfg.obj_labels) if cfg.obj_labels else None
-    for obj_id in ds.model_ids:
-        if wanted is not None and obj_id not in wanted:
-            continue
-        wdir = os.path.join(ds.dir, "pix2pose_weights", f"{obj_id:02d}")
-        variables = ckpt_util.load_inference_params(wdir)
-        if variables is None:
-            print(f"skip obj {obj_id}: no weights under {wdir}")
-            continue
-        state = flax_to_state_dict(variables)
-        model.load_state_dict(state, strict=True)
-        params_by_obj[obj_id] = state
-        obj_params[obj_id] = obj_param_from_norm_factor(norm[str(obj_id)])
+    params_by_obj = load_generators(
+        ds, model, [o for o in ds.model_ids if wanted is None or o in wanted],
+        device)
+    obj_params = load_norm_params(ds, params_by_obj, args.norm_factor)
+    corners, meshes_m = {}, {}
+    for obj_id in params_by_obj:
         mesh = load_ply(ds.model_ply_path(obj_id))
         corners[obj_id] = bbox_corners(mesh["pts"])
         if cfg.icp:
@@ -102,14 +86,7 @@ def create_server(argv: Sequence[str] | None = None):
                          "(python -m pix2pose_tpu train ..., then convert "
                          "the checkpoint: pix2pose_torch.utils.checkpoint)")
 
-    det_vars = ckpt_util.load_inference_params(
-        os.path.join(ds.dir, "weight_detection", "centernet"))
-    if det_vars is None:
-        raise SystemExit("no trained detector under weight_detection/"
-                         "centernet — run detector training first")
-    detector = TorchDetector(CenterNetDetector(num_classes=len(ds.model_ids)),
-                             flax_to_state_dict(det_vars), ds.model_ids,
-                             device=device)
+    detector = load_torch_detector(ds, device)
 
     svc = PoseService(cfg, detector, model, params_by_obj, obj_params,
                       corners, max_det=args.max_det,

@@ -123,3 +123,91 @@ class PerFrameDetector:
                          vu[1].max()], np.int32)
         return [Detection(bbox=bbox + np.int32(3 * k), obj_id=self.obj_id,
                           score=0.9, mask=fg) for k in range(self.n_det)]
+
+
+def build_cube_dataset(root, n_scenes=1, ims_per_scene=2, half=40.0,
+                       im_h=480, im_w=640, split="test", device="cuda"):
+    """Write the BOP-layout dataset 'cubes' under ``root`` (the port of
+    the JAX package's test fixture ``tests/bop_fixture.py:
+    build_cube_dataset``, rendered on ``device``): one cube model with
+    ``models_info.json`` and ``models_xyz/norm_factor.json``, and per
+    image an unlit XYZ-coloured RGB render on a gray background (so
+    :class:`OracleGenerator` yields exact correspondences), the depth in
+    mm, the ``mask_visib`` PNG, ``scene_camera`` / ``scene_gt`` and the
+    test targets. The poses are drawn from ``np.random.RandomState(7)``,
+    as the fixture draws them. Returns [(scene_id, im_id, R, t), ...]."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from pix2pose_torch.data.ply import save_ply
+    from pix2pose_torch.ops import rasterizer
+
+    ds_dir = os.path.join(root, "cubes")
+    model_dir = os.path.join(ds_dir, "models")
+    xyz_dir = os.path.join(ds_dir, "models_xyz")
+    os.makedirs(model_dir, exist_ok=True)
+    os.makedirs(xyz_dir, exist_ok=True)
+
+    verts, faces = cube_mesh(half)
+    diam = float(np.linalg.norm([2 * half] * 3))
+    save_ply(os.path.join(model_dir, "obj_000001.ply"), verts, faces)
+    with open(os.path.join(model_dir, "models_info.json"), "w") as f:
+        json.dump({"1": {"diameter": diam,
+                         "min_x": -half, "min_y": -half, "min_z": -half,
+                         "size_x": 2 * half, "size_y": 2 * half,
+                         "size_z": 2 * half}}, f)
+    with open(os.path.join(ds_dir, "camera.json"), "w") as f:
+        json.dump({"fx": float(CAM_K[0, 0]), "fy": float(CAM_K[1, 1]),
+                   "cx": float(CAM_K[0, 2]), "cy": float(CAM_K[1, 2]),
+                   "width": im_w, "height": im_h, "depth_scale": 1.0}, f)
+    with open(os.path.join(xyz_dir, "norm_factor.json"), "w") as f:
+        json.dump({"1": {"x_scale": half, "y_scale": half, "z_scale": half,
+                         "x_ct": 0.0, "y_ct": 0.0, "z_ct": 0.0}}, f)
+
+    dev = torch.device(device)
+    colors = ((verts / half + 1.0) / 2.0 * 255.0).astype(np.float32)
+    v_t, f_t, c_t = (torch.as_tensor(a, device=dev)
+                     for a in (verts, faces, colors))
+    K = torch.as_tensor(CAM_K, device=dev)
+    entries, targets = [], []
+    rng = np.random.RandomState(7)
+    for s in range(n_scenes):
+        sdir = os.path.join(ds_dir, split, f"{s:06d}")
+        for sub in ("rgb", "depth", "mask_visib"):
+            os.makedirs(os.path.join(sdir, sub), exist_ok=True)
+        cam, gt = {}, {}
+        for i in range(ims_per_scene):
+            R, t = pose_with_euler(
+                yaw=rng.uniform(-1, 1), pitch=rng.uniform(-0.8, 0.8),
+                roll=rng.uniform(-1, 1), tx=rng.uniform(-40, 40),
+                ty=rng.uniform(-30, 30), tz=rng.uniform(500, 800))
+            out = rasterizer.render_mesh(v_t, f_t, c_t,
+                                         torch.as_tensor(R, device=dev),
+                                         torch.as_tensor(t, device=dev), K,
+                                         im_h, im_w)
+            mask = out.mask.cpu().numpy()
+            rgb = np.full((im_h, im_w, 3), 128, np.uint8)
+            rgb[mask] = np.clip(out.attr.cpu().numpy()[mask], 0,
+                                255).astype(np.uint8)
+            Image.fromarray(rgb).save(
+                os.path.join(sdir, "rgb", f"{i:06d}.png"))
+            Image.fromarray(out.depth.cpu().numpy().astype(np.uint16)).save(
+                os.path.join(sdir, "depth", f"{i:06d}.png"))
+            Image.fromarray((mask * 255).astype(np.uint8)).save(
+                os.path.join(sdir, "mask_visib", f"{i:06d}_000000.png"))
+            cam[str(i)] = {"cam_K": CAM_K.reshape(-1).tolist(),
+                           "depth_scale": 1.0}
+            gt[str(i)] = [{"obj_id": 1, "cam_R_m2c": R.reshape(-1).tolist(),
+                           "cam_t_m2c": t.tolist()}]
+            entries.append((s, i, R, t))
+            targets.append({"scene_id": s, "im_id": i, "obj_id": 1,
+                            "inst_count": 1})
+        with open(os.path.join(sdir, "scene_camera.json"), "w") as f:
+            json.dump(cam, f)
+        with open(os.path.join(sdir, "scene_gt.json"), "w") as f:
+            json.dump(gt, f)
+    with open(os.path.join(ds_dir, "test_targets_bop19.json"), "w") as f:
+        json.dump(targets, f)
+    return entries

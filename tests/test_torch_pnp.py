@@ -123,3 +123,25 @@ def test_pnp_ransac_own_sampler_recovers_pose(jax_batch):
     assert np.linalg.norm(got.t.numpy() - np.asarray(ref.t[0])) < 2.0
     cos = (np.trace(got.R.numpy().T @ np.asarray(ref.R[0])) - 1) / 2
     assert np.degrees(np.arccos(np.clip(cos, -1, 1))) < 1.0
+
+
+def test_pnp_ransac_batch_generator_per_group(jax_batch):
+    """A sequence of generators, one per equal group of candidates, gives
+    each group the result of a call on that group alone with its
+    generator (candidates 0-1 and 2-3); a count that does not divide the
+    candidates raises."""
+    (obj, img, valid, quality), _, _ = jax_batch
+    args = [torch.from_numpy(x) for x in (obj, img, valid)]
+    k, q = torch.from_numpy(CAM_K), torch.from_numpy(quality)
+
+    def gens():
+        return [torch.Generator().manual_seed(s) for s in (11, 12)]
+
+    got = tpnp.pnp_ransac_batch(*args, k, gens(), q, **KW)
+    for g, rows in zip(gens(), (slice(0, 2), slice(2, 4))):
+        alone = tpnp.pnp_ransac_batch(*(a[rows] for a in args), k, g,
+                                      q[rows], **KW)
+        for x, y in zip(got, alone):
+            assert torch.equal(x[rows], y)
+    with pytest.raises(ValueError):
+        tpnp.pnp_ransac_batch(*args, k, gens() + gens()[:1], q, **KW)
