@@ -64,6 +64,22 @@ then drives the port's paths through the entry points a user calls:
            Prints each CLI's wall, the CSVs' per-image wall, evaluate_bop
            seconds per image, detections and ICP hypotheses per image and
            K1's launches on each path.
+  phase 8  GAN training on the card, under phase 6's root: a train
+           split of 240 images of the rehearsal objects (K1 launches
+           under ``train_dataset``), ``render-pairs`` for object 1
+           (``train_pairs``); one GAN step of the paper generator at B=4
+           on the card against the CPU, in float64 and in float32
+           (losses within 1e-4 relative, parameters within 1e-6 on 99.9%
+           and 99.5% of each network's elements);
+           ``python -m pix2pose_torch train`` with the paper generator at
+           batch 50 for 10 epochs (steps/s per 100-step window from CUDA
+           events, peak memory, recon loss of the first and last 100
+           steps: the last below 0.6 x the first), resumed for 5 steps;
+           20 steps each of the ResNet-50 backbone and of bfloat16 (losses
+           finite); ``eval`` with the GT detector and ``evaluate_bop`` for
+           object 1 with the trained and the initial weights (``train_eval``;
+           rows finite, ARs in [0, 1]; no row, AR 0, when no pose passes
+           the estimator's gates).
   last     eval-icp once more under torch.profiler (device busy share,
            K1's share, costliest device operations), then each entry's
            device operations per call on phase 1's 40 000-face sphere,
@@ -71,8 +87,8 @@ then drives the port's paths through the entry points a user calls:
            paths, because a profiler session leaves the process's later
            CUDA launches slower.
 
-Each path (phases 2, 3, 4's benchmark, 5, 6, and phase 7's evaluators,
-eval-icp CLI and metrics) runs with every kernel
+Each path (phases 2, 3, 4's benchmark, 5, 6, phase 7's evaluators,
+eval-icp CLI and metrics, and phase 8's build, pairs and evaluation) runs with every kernel
 launch counter set to 0 just before it and read just after, and fails if
 a kernel it runs was launched no time. Launches that compare a kernel
 with its plain version are not counted. TF32 is off for matmuls and
@@ -1090,9 +1106,10 @@ def phase7a_oracle(dev):
 JAX_REHEARSAL_GT_AR = 1.0
 
 
-def csv_stats(label, path, n_img):
-    """Load a BOP CSV, fail unless every row is finite; log the per-image
-    wall (the ``time`` column). Returns the rows."""
+def csv_stats(label, path, n_img, allow_empty=False):
+    """Load a BOP CSV, fail unless every row is finite (and, unless
+    ``allow_empty``, unless there is one); log the per-image wall (the
+    ``time`` column). Returns the rows."""
     import numpy as np
 
     from pix2pose_torch.data.bop import load_bop_results
@@ -1102,12 +1119,15 @@ def csv_stats(label, path, n_img):
         vals = np.concatenate([r["R"].ravel(), r["t"], [r["score"],
                                                         r["time"]]])
         if vals.shape != (14,) or not np.isfinite(vals).all():
-            raise AssertionError(f"phase 7b {label}: bad row {r}")
+            raise AssertionError(f"{label}: bad row {r}")
     per_img = sorted({(r["scene_id"], r["im_id"]): r["time"]
                       for r in rows}.values())
     if not rows:
-        raise AssertionError(f"phase 7b {label}: no rows")
-    log(f"phase 7b {label}: {len(rows)} rows over {len(per_img)} of "
+        if allow_empty:
+            log(f"{label}: no rows (no pose passed the estimator's gates)")
+            return rows
+        raise AssertionError(f"{label}: no rows")
+    log(f"{label}: {len(rows)} rows over {len(per_img)} of "
         f"{n_img} images, all finite; per-image wall (CSV time column) "
         f"median {np.median(per_img):.3f} s, max {max(per_img):.3f} s")
     return rows
@@ -1178,7 +1198,7 @@ def phase7b_cli(dev, root):
         raise AssertionError("phase 7b: ICP ran in the RGB eval or not in "
                              "eval-icp")
 
-    rows = {label: csv_stats(label, os.path.join(
+    rows = {label: csv_stats(f"phase 7b {label}", os.path.join(
                 root, f"out_{run}", f"{name}_rehearsal-test.csv"), n_img)
             for label, run, name in (
                 ("eval --detections", "det", "pix2pose-torch"),
@@ -1203,6 +1223,344 @@ def phase7b_cli(dev, root):
         f"{metrics_launches} (evaluate_bop); GT-pose AR {ar_gt['AR']:.6f} "
         f"(JAX package {JAX_REHEARSAL_GT_AR}); on {card}")
     return icp_launches, metrics_launches
+
+
+# Phase 8 trains on a larger train split than the rehearsal set's 48
+# images: the trainer's epoch is n_pairs / batch * 10 steps and its lr drops
+# per epoch (1e-4 from epoch 7, 1e-5 from 10), so 48 images' pairs make
+# ~17-step epochs and a 10-epoch run of ~170 steps. 240 images give ~450
+# pairs of object 1 and a 10-epoch run of ~890 steps, ~105 s on an H100
+# (200 images' 750 steps left the generator's error map above every
+# outlier threshold on the test images: no pose)
+TRAIN_IMAGES = 240
+TRAIN_EPOCHS = 10
+# the card-vs-CPU step's lr (tests/test_torch_gan.py: float32 case)
+CMP_LR = 5e-6
+# the full-width run passes when its last 100 steps' mean recon loss is
+# below this share of its first 100 steps'
+RECON_RATIO = 0.6
+
+
+class StepRecorder:
+    """While installed, wraps the trainer's GAN step (``make_train_step``
+    as ``pix2pose_torch.training.train`` calls it): keeps every step's
+    metrics (device tensors, no sync) and records a CUDA event after every
+    ``every`` steps."""
+
+    def __init__(self, every: int):
+        self.every, self.metrics, self.events = every, [], []
+
+    def __enter__(self):
+        import torch
+
+        from pix2pose_torch.training import train as tr
+
+        self._saved = make = tr.make_train_step
+
+        def wrapped(cfg):
+            step = make(cfg)
+
+            def recorded(*args, **kw):
+                m = step(*args, **kw)
+                self.metrics.append(m)
+                if len(self.metrics) % self.every == 0:
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    self.events.append(ev)
+                return m
+            return recorded
+
+        tr.make_train_step = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from pix2pose_torch.training import train as tr
+
+        tr.make_train_step = self._saved
+
+    def windows(self) -> list:
+        """Steps per second of each window of ``every`` steps after the
+        first (the warm-up), from the CUDA events."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [self.every * 1e3 / a.elapsed_time(b)
+                for a, b in zip(self.events, self.events[1:])]
+
+    def series(self, key: str):
+        import torch
+
+        return torch.stack([m[key] for m in self.metrics]).cpu().numpy()
+
+
+def rehearsal_backs(back_dir):
+    """Backgrounds as the JAX rehearsal builds them
+    (``pix2pose_tpu/tools/rehearsal.py:180-193``): 5 noise images and 3
+    solid ones, 120x160."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(back_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    for i in range(5):
+        Image.fromarray(rng.randint(0, 255, (120, 160, 3)).astype(
+            np.uint8)).save(os.path.join(back_dir, f"b{i}.png"))
+    for i, val in enumerate((255, 230, 160)):
+        Image.fromarray(np.full((120, 160, 3), val, np.uint8)).save(
+            os.path.join(back_dir, f"s{i}.png"))
+
+
+# biases a train-mode BatchNorm follows: zero gradient in exact arithmetic,
+# so their float32 gradient is noise that Adam turns into +-lr
+_BIAS_BEFORE_BN = ("conv", "deconv") + tuple(f"conv{i}" for i in range(1, 8))
+
+
+def step_card_vs_cpu(dev, ds, data_dir, back_dir):
+    """One GAN step of the paper generator at 128 px, B=4, on the card and
+    on the CPU from the same initial weights, batch and label draws (made
+    on the CPU), with the networks in float64 and then in float32 (the
+    losses stay float32 in both, as the trainer makes them). Both: losses
+    within 1e-4 relative, every parameter within 2 lr per Adam update
+    (and rounding). float64, at the trainer's lr: parameters within 1e-6
+    on at least 99.9% of each network's elements. float32, at lr 5e-6:
+    99.5%, without the biases in front of a BatchNorm, whose float32
+    gradient is noise (``tests/test_torch_gan.py`` says why; on an NVIDIA
+    H100 the generator's share measured 99.896-99.964%)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.config import TrainConfig
+    from pix2pose_torch.models import AutoEncoder, Discriminator
+    from pix2pose_torch.training.data import PatchStore, make_batch
+    from pix2pose_torch.training.gan import (create_train_state,
+                                             draw_labels, init_like_flax,
+                                             make_train_step)
+    from pix2pose_torch.utils.symmetry import training_sym_pool
+
+    cfg = TrainConfig(batch_size=4)
+    gen = torch.Generator().manual_seed(SEED)
+    store = PatchStore.load(data_dir, back_dir, device="cpu")
+    batch = make_batch(store, gen, 0, cfg.batch_size)
+    labels = draw_labels(gen, cfg.batch_size, cfg.label_flipping)
+    pool = torch.as_tensor(training_sym_pool(ds, 1), dtype=torch.float32)
+    init = torch.Generator().manual_seed(SEED)
+    nets = (init_like_flax(AutoEncoder(), init),
+            init_like_flax(Discriminator(), init))
+    for dtype, lr, share in ((torch.float64, cfg.lr_schedule[0], 0.999),
+                             (torch.float32, CMP_LR, 0.995)):
+        out = []
+        for d in (torch.device("cpu"), dev):
+            st = create_train_state(
+                *(copy.deepcopy(n).to(d, dtype) for n in nets), cfg)
+            b = {k: v.to(d) for k, v in batch.items()}
+            b["src"] = b["src"].to(dtype)
+            m = make_train_step(cfg)(
+                st, b, pool.to(d), lr,
+                {k: v.to(d) for k, v in labels.items()})
+            out.append(({k: float(v) for k, v in m.items()},
+                        [{k: v.detach().cpu() for k, v in
+                          n.named_parameters()} for n in (st.gen, st.disc)]))
+        (m_cpu, p_cpu), (m_card, p_card) = out
+        rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+        if max(rel.values()) > 1e-4:
+            raise AssertionError(f"phase 8 step {dtype}: losses card "
+                                 f"{m_card} cpu {m_cpu}")
+        shares = []
+        for net, updates, a, b in (
+                ("generator", 1, p_cpu[0], p_card[0]),
+                ("discriminator", 2, p_cpu[1], p_card[1])):
+            n_ok = n_all = 0
+            for k in a:
+                diff = (a[k] - b[k]).abs()
+                # and the rounding of the parameters (1.2e-7 at 1.0)
+                bound = 2 * lr * updates + 4 * float(np.spacing(
+                    a[k].abs().max().numpy()))
+                if float(diff.max()) > bound:
+                    raise AssertionError(f"phase 8 step {dtype}: {net} {k} "
+                                         f"moved {float(diff.max())} apart")
+                *mod, leaf = k.split(".")
+                if dtype == torch.float64 or not (
+                        leaf == "bias" and mod[-1] in _BIAS_BEFORE_BN):
+                    n_ok += int((diff <= 1e-6).sum())
+                    n_all += diff.numel()
+            shares.append(n_ok / n_all)
+            if n_ok < share * n_all:
+                raise AssertionError(f"phase 8 step {dtype}: {net} "
+                                     f"parameters within 1e-6 "
+                                     f"{n_ok / n_all:.6f}")
+        log(f"phase 8: one GAN step (paper generator, 128 px, B=4, "
+            f"{dtype}, lr {lr:g}) on the card against the CPU: losses "
+            f"{m_card}, relative differences "
+            f"{({k: f'{v:.2e}' for k, v in rel.items()})}; parameters "
+            f"within 1e-6: generator {shares[0]:.6f}, discriminator "
+            f"{shares[1]:.6f}")
+
+
+def short_run(label, ds, back_dir, cfg, weight_root, dev, steps=20):
+    """``train_object`` for ``steps`` steps into ``weight_root``; prints
+    steps/s (CUDA events over the steps after the first 5) and fails
+    unless every loss is finite."""
+    import numpy as np
+
+    from pix2pose_torch.training.train import train_object
+
+    with StepRecorder(5) as rec:
+        train_object(ds, 1, back_dir, cfg, weight_root=weight_root,
+                     max_steps=steps, device=dev)
+    rates = rec.windows()
+    losses = {k: rec.series(k) for k in rec.metrics[0]}
+    finite = all(np.isfinite(v).all() for v in losses.values())
+    rate = len(rates) / sum(1.0 / r for r in rates)
+    log(f"phase 8 {label}: {steps} steps at batch {cfg.batch_size}, "
+        f"{rate:.2f} steps/s over steps 6-{steps} (CUDA events); recon "
+        f"loss first / last {losses['recon_loss'][0]:.4f} / "
+        f"{losses['recon_loss'][-1]:.4f}; all losses finite: {finite}")
+    if not finite:
+        raise AssertionError(f"phase 8 {label}: a loss is not finite")
+    return rate
+
+
+def phase8_training(dev, root):
+    """GAN training on the card, on a train split of ``TRAIN_IMAGES``
+    images of the rehearsal objects built under phase 6's root: pairs for
+    object 1 (``render-pairs``); one step on the card against the CPU;
+    ``python -m pix2pose_torch train`` with the paper generator at batch
+    50 for ``TRAIN_EPOCHS`` epochs (steps/s, peak memory, recon loss of the
+    first and last 100 steps), then resumed for 5 steps; 20 steps each of
+    the ResNet-50 backbone and of bfloat16; ``eval`` with the GT detector
+    and ``evaluate_bop`` for object 1 with the trained weights and with
+    the trainer's initial ones. Returns the K1 launches of the split's
+    build, of the pairs and of the evaluation."""
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.config import TrainConfig
+    from pix2pose_torch.data.bop import BopDataset, get_target_list
+    from pix2pose_torch.data.synthetic_bop import build_rehearsal_dataset
+    from pix2pose_torch.models import AutoEncoder
+    from pix2pose_torch.training.gan import init_like_flax
+    from pix2pose_torch.utils.checkpoint import export_inference
+    from pix2pose_torch.utils.convert import state_dict_to_flax
+
+    card = card_line()
+    name = "rehearsal_train"
+    dev_arg = ["--device", str(dev)]
+    reset_counts()
+    t0 = time.perf_counter()
+    build_rehearsal_dataset(root, name=name, n_train=TRAIN_IMAGES, seed=1,
+                            device=dev)
+    cfg = os.path.join(root, "cfg_train.json")
+    with open(cfg, "w") as f:
+        json.dump({"dataset_dir": root, "backbone": "paper"}, f)
+    cli(["colorize-models", cfg, name])
+    t1 = time.perf_counter()
+    build_launches = read_counts()["binned_zbuffer"]
+    reset_counts()
+    cli(["render-pairs", cfg, name, "--obj", "1"] + dev_arg)
+    pair_launches = read_counts()["binned_zbuffer"]
+    t2 = time.perf_counter()
+    ds = BopDataset(root, name, train=True)
+    data_dir = os.path.join(ds.dir, "train_xyz", "01")
+    n_pairs = len([f for f in os.listdir(data_dir) if f.endswith(".npy")])
+    back_dir = os.path.join(root, "backs")
+    rehearsal_backs(back_dir)
+    log(f"phase 8: {TRAIN_IMAGES} + 6 images in {t1 - t0:.2f} s (K1 "
+        f"{build_launches}); render-pairs object 1: {n_pairs} pairs in "
+        f"{t2 - t1:.2f} s, K1 launches {pair_launches}")
+    if pair_launches == 0 or n_pairs == 0:
+        raise AssertionError("phase 8: render-pairs wrote no pair or never "
+                             "launched K1")
+
+    step_card_vs_cpu(dev, ds, data_dir, back_dir)
+
+    # the full-width run through the CLI, then resumed
+    n_batch = TrainConfig().batches_per_epoch(n_pairs)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepRecorder(100) as rec:
+        cli(["train", cfg, name, "1", back_dir, "--epochs",
+             str(TRAIN_EPOCHS)] + dev_arg)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rates = rec.windows()
+    recon = rec.series("recon_loss")
+    first, last = float(recon[:100].mean()), float(recon[-100:].mean())
+    log(f"phase 8 train CLI: paper generator, batch 50, {TRAIN_EPOCHS} "
+        f"epochs of {n_batch} steps ({len(recon)} steps) in {wall:.1f} s; "
+        f"steps/s per 100-step window after the first (CUDA events): "
+        f"{[round(r, 2) for r in rates]}, median "
+        f"{float(np.median(rates)):.2f}; peak memory {peak:.2f} GiB; "
+        f"recon loss mean of the first 100 steps {first:.4f}, of the last "
+        f"100 {last:.4f} (ratio {last / first:.3f}); on {card}")
+    if not np.isfinite(recon).all() or last >= RECON_RATIO * first:
+        raise AssertionError(f"phase 8: recon loss {first} -> {last}")
+    wdir = os.path.join(ds.dir, "pix2pose_weights", "01")
+    state = cli(["train", cfg, name, "1", back_dir, "--epochs",
+                 str(TRAIN_EPOCHS + 1), "--max-steps", "5"] + dev_arg)
+    resumed = os.path.exists(os.path.join(
+        wdir, f"epoch_{TRAIN_EPOCHS + 1:04d}.pt"))
+    if not resumed or state.step != len(recon) + 5:
+        raise AssertionError(f"phase 8: resume: step {state.step}, "
+                             f"expected {len(recon) + 5}")
+    log(f"phase 8 train CLI resumed from epoch {TRAIN_EPOCHS}: 5 more "
+        f"steps, state at step {state.step}")
+
+    other = os.path.join(root, "weights_other")
+    short_run("ResNet-50 backbone (trunk decay)", ds, back_dir,
+              TrainConfig(backbone="resnet50", max_epoch=1),
+              os.path.join(other, "resnet50"), dev)
+    short_run("bfloat16 (paper)", ds, back_dir,
+              TrainConfig(compute_dtype="bfloat16", max_epoch=1),
+              os.path.join(other, "bf16"), dev)
+
+    # evaluation of object 1: trained weights, then the trainer's initial
+    # weights (its seed) in the same place
+    test = BopDataset(root, name, train=False)
+    targets = [(s, i, [o for o in objs if o == 1],
+                [c for o, c in zip(objs, cnts) if o == 1])
+               for s, i, objs, cnts in get_target_list(
+                   os.path.join(test.dir, "test_targets_bop19.json"))
+               if 1 in objs]
+    ecfg = os.path.join(root, "cfg_eval_train.json")
+    out = os.path.join(root, "out_train")
+    with open(ecfg, "w") as f:
+        json.dump({"dataset_dir": root, "backbone": "paper",
+                   "score_type": 2, "task_type": 2, "target_obj": [1],
+                   "path_to_output": out}, f)
+    csv = os.path.join(out, f"pix2pose-torch_{name}-test.csv")
+    ars = {}
+    reset_counts()
+    for label in ("trained", "seeded"):
+        if label == "seeded":
+            export_inference(wdir, state_dict_to_flax(init_like_flax(
+                AutoEncoder(), torch.Generator().manual_seed(1))
+                .state_dict()))
+        cli(["eval", ecfg, name] + dev_arg)
+        # weights this short a run trains, and untrained ones, may give no
+        # pose at all: then every target is missed and each AR is 0
+        rows = csv_stats(f"phase 8 eval ({label} weights)", csv,
+                         len(targets), allow_empty=True)
+        ars[label] = (timed_ar(f"object 1, {label} weights", rows, test,
+                               dev, targets) if rows else
+                      dict.fromkeys(("AR_vsd", "AR_mssd", "AR_mspd", "AR"),
+                                    0.0))
+    # and the split's GT poses: every instance visible, AR 1
+    gt = [r for r in gt_results(test, targets) if r["obj_id"] == 1]
+    ars["GT"] = timed_ar("object 1, GT poses", gt, test, dev, targets)
+    eval_launches = read_counts()["binned_zbuffer"]
+    if ars["GT"]["AR"] < JAX_REHEARSAL_GT_AR - 0.01:
+        raise AssertionError(f"phase 8: GT-pose AR {ars['GT']['AR']}")
+    log(f"phase 8: AR of object 1 on {len(targets)} test images, trained "
+        f"{ {k: round(v, 4) for k, v in ars['trained'].items() if k.startswith('AR')} }"
+        f", seeded { {k: round(v, 4) for k, v in ars['seeded'].items() if k.startswith('AR')} }"
+        f", GT poses {ars['GT']['AR']:.4f}; K1 launches {eval_launches}; on "
+        f"{card}")
+    if eval_launches == 0:
+        raise AssertionError("phase 8: evaluate_bop never launched K1")
+    return build_launches, pair_launches, eval_launches
 
 
 def eval_icp_device_share(dev, root):
@@ -1281,6 +1639,7 @@ def main() -> int:
                                                                      root)}
         cube_set, oracle, metrics_a = phase7a_oracle(dev)
         icp, metrics_b = phase7b_cli(dev, root)
+        train_set, train_pairs, train_eval = phase8_training(dev, root)
         # Last, after every path: a torch.profiler session leaves the
         # process's later CUDA launches slower, which would show in the
         # host-bound paths.
@@ -1289,6 +1648,9 @@ def main() -> int:
     by_path["eval_oracle"] = {"binned_zbuffer": oracle}
     by_path["eval_icp"] = {"binned_zbuffer": icp}
     by_path["metrics"] = {"binned_zbuffer": metrics_a + metrics_b}
+    by_path["train_dataset"] = {"binned_zbuffer": train_set}
+    by_path["train_pairs"] = {"binned_zbuffer": train_pairs}
+    by_path["train_eval"] = {"binned_zbuffer": train_eval}
     for label, core, rec, (packed, bounds) in (
             ("phase 1 sphere", rasterizer_cuda._binned_core_cuda, rec_k1,
              in_k1),

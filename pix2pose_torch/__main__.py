@@ -24,6 +24,8 @@ _COMMANDS = {
               "ros_kinetic/ros_pix2pose.py (TCP transport here)"),
     "run-detector": ("pix2pose_torch.tools.run_detector",
                      "tools/mask_rcnn_util.py inference path"),
+    "train": ("pix2pose_torch.training.train",
+              "tools/3_train_pix2pose.py"),
 }
 
 
@@ -37,7 +39,8 @@ def _usage() -> str:
     return "\n".join(lines)
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None):
+    """Run one command; returns what the command's ``main`` returns."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(_usage())
@@ -48,7 +51,7 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(2)
     import importlib
 
-    importlib.import_module(_COMMANDS[cmd][0]).main(argv[1:])
+    return importlib.import_module(_COMMANDS[cmd][0]).main(argv[1:])
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ Layout: the public forward takes and returns NHWC like the JAX package;
 inside it runs NCHW for cuDNN. Module names match the flax tree so
 :func:`pix2pose_torch.utils.convert.flax_to_state_dict` is a renaming plus
 layout changes. BatchNorm eps is Keras' 1e-3 (momentum 0.99 in Keras is
-0.01 in torch); LeakyReLU slope is 0.3.
+0.01 in torch; the running variance takes the biased batch variance, as
+flax's does, :mod:`pix2pose_torch.models.batchnorm`); LeakyReLU slope is
+0.3.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from pix2pose_torch.models.batchnorm import BatchNorm2d
 from pix2pose_torch.models.resnet50 import ResNet50Trunk
 
 _LEAK = 0.3
@@ -44,7 +47,7 @@ class _ConvBNAct(nn.Module):
         super().__init__()
         self.kernel, self.stride = kernel, stride
         self.conv = nn.Conv2d(cin, cout, kernel, stride)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01)
+        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.01)
 
     def forward(self, x):
         (t, b), (l, r) = (_same_pad(self.kernel, self.stride, x.shape[2]),
@@ -70,7 +73,7 @@ class _DeconvBNAct(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.deconv = _ConvTransposeSame(cin, cout)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01)
+        self.bn = BatchNorm2d(cout, eps=1e-3, momentum=0.01)
 
     def forward(self, x):
         return F.leaky_relu(self.bn(self.deconv(x)), _LEAK)

@@ -21,11 +21,13 @@ import numpy as np
 from torch import nn
 import torch.nn.functional as F
 
+from pix2pose_torch.models.batchnorm import BatchNorm2d
+
 _BN_EPS = 1.001e-5
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=_BN_EPS, momentum=0.01)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=_BN_EPS, momentum=0.01)
 
 
 class Bottleneck(nn.Module):

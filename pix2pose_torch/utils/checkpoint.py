@@ -1,5 +1,10 @@
-"""Inference checkpoints (port of the deployment half of
-:mod:`pix2pose_tpu.utils.checkpoint`).
+"""Checkpoints (port of :mod:`pix2pose_tpu.utils.checkpoint`): the
+trainer's per-epoch train states and the inference artifact.
+
+A train state is ``<weight_dir>/epoch_XXXX.pt``, written with
+``torch.save``: both networks' ``state_dict``, both optimizers', the step
+and the epoch (the JAX package writes an orbax ``epoch_XXXX/`` directory
+of the same contents). Resuming reads the newest.
 
 A deployment artifact is ``<weight_dir>/inference.npz``: the flax
 variables tree (``{'params': ..., 'batch_stats': ...}``) as numpy arrays
@@ -16,7 +21,8 @@ which needs JAX to read. Convert it once where JAX is installed, with
     export_inference(wdir, jax.device_get(load_inference_params(wdir)))
 
 Keras ``inference*.hdf5`` files are read by the JAX package's import
-shim; the port reads them once ``hdf5_import`` is ported with training.
+shim; the port does not read them yet (its ``hdf5_import`` holds only the
+ImageNet trunk import).
 """
 
 from __future__ import annotations
@@ -39,6 +45,62 @@ def _flatten(tree, prefix=""):
             yield from _flatten(v, path)
         else:
             yield path, np.asarray(v)
+
+
+def _epoch_path(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, f"epoch_{epoch:04d}.pt")
+
+
+def save_train_state(ckpt_dir: str, state, epoch: int) -> str:
+    """Per-epoch snapshot of a :class:`~pix2pose_torch.training.gan.
+    GanTrainState` (networks with their BatchNorm statistics, optimizer
+    moments and counts, step, epoch); returns the path."""
+    import torch
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = _epoch_path(ckpt_dir, epoch)
+    torch.save({"gen": state.gen.state_dict(),
+                "disc": state.disc.state_dict(),
+                "gen_opt": state.gen_opt.state_dict(),
+                "disc_opt": state.disc_opt.state_dict(),
+                "step": state.step, "epoch": epoch}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def latest_epoch(ckpt_dir: str) -> int:
+    """The newest epoch snapshot by filename scan (``epoch_XXXX`` with or
+    without ``.pt``, like the reference's resume at ``3_train:139-167``);
+    -1 when none."""
+    if not os.path.isdir(ckpt_dir):
+        return -1
+    best = -1
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("epoch_"):
+            stem = name.split("_")[1]
+            stem = stem[:-3] if stem.endswith(".pt") else stem
+            if stem.isdigit():
+                best = max(best, int(stem))
+    return best
+
+
+def restore_train_state(ckpt_dir: str, state, epoch: int | None = None):
+    """Load the given (or newest) epoch snapshot into ``state``'s networks
+    and optimizers, in place, on the device its parameters are on.
+    Returns (state, epoch), or (None, -1) when there is none."""
+    import torch
+
+    e = latest_epoch(ckpt_dir) if epoch is None else epoch
+    if e < 0:
+        return None, -1
+    dev = next(state.gen.parameters()).device
+    snap = torch.load(_epoch_path(ckpt_dir, e), map_location=dev)
+    state.gen.load_state_dict(snap["gen"])
+    state.disc.load_state_dict(snap["disc"])
+    state.gen_opt.load_state_dict(snap["gen_opt"])
+    state.disc_opt.load_state_dict(snap["disc_opt"])
+    state.step = int(snap["step"])
+    return state, int(snap["epoch"])
 
 
 def export_inference(weight_dir: str, variables: dict) -> str:

@@ -1,6 +1,7 @@
 """Start-up helpers shared by the command-line entry points (``serve``,
-``eval``, ``eval-icp``, ``run-detector``): the device check and the
-checkpoint loading, with the JAX package's directory conventions."""
+``eval``, ``eval-icp``, ``run-detector``, ``train``): the device check
+with the float32 precision pin, and the checkpoint loading, with the JAX
+package's directory conventions."""
 
 from __future__ import annotations
 
@@ -11,9 +12,16 @@ import numpy as np
 
 def require_device(name: str):
     """``torch.device(name)``; exits when it names CUDA and none is
-    present (the caller passes ``--device cpu`` to run on the CPU)."""
+    present (the caller passes ``--device cpu`` to run on the CPU).
+
+    Pins convolutions and matmuls to full float32: cuDNN and cuBLAS may
+    otherwise round their inputs to TF32 on the GPU (cuDNN does by
+    default), and every parity bar of the port, like the JAX package,
+    assumes float32."""
     import torch
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available "

@@ -1,6 +1,8 @@
-"""Flax variables -> torch ``state_dict``, for every network the port has:
-the generator (paper and ResNet-50 backbones) and the CenterNet detector
-(ResNet-50 or tiny trunk, fused, unfused or shared heads).
+"""Flax variables <-> torch ``state_dict``, for every network the port
+has: the generator (paper and ResNet-50 backbones), the GAN discriminator
+and the CenterNet detector (ResNet-50 or tiny trunk, fused, unfused or
+shared heads). :func:`state_dict_to_flax` is the inverse of
+:func:`flax_to_state_dict`; the trainer exports through it.
 
 The port's modules carry the flax tree's names, so conversion is a
 renaming plus three layout changes, and nothing is guessed from shapes:
@@ -66,6 +68,38 @@ def flax_to_state_dict(variables: dict) -> dict:
             np.array(leaf, dtype=np.float32))
         out[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def state_dict_to_flax(state_dict: dict) -> dict:
+    """A port module's ``state_dict`` -> ``{'params': ..., 'batch_stats':
+    ...}`` as nested dicts of float32 numpy arrays in flax layout (the
+    inverse of :func:`flax_to_state_dict`, exact; ``num_batches_tracked``
+    has no flax counterpart and is dropped)."""
+    variables: dict = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        *mod, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        a = t.detach().cpu().float().numpy()
+        if name == "weight" and a.ndim == 4:
+            col, leaf = "params", "kernel"
+            a = (a.transpose(2, 3, 0, 1)[::-1, ::-1]
+                 if mod[-1] in _TRANSPOSED else a.transpose(2, 3, 1, 0))
+        elif name == "weight" and a.ndim == 2:
+            col, leaf, a = "params", "kernel", a.T
+        elif name == "weight":
+            col, leaf = "params", "scale"
+        elif name == "bias":
+            col, leaf = "params", "bias"
+        elif name in ("running_mean", "running_var"):
+            col, leaf = "batch_stats", name[len("running_"):]
+        else:
+            raise KeyError(f"unexpected state_dict entry {key}")
+        node = variables[col]
+        for k in mod:
+            node = node.setdefault(k, {})
+        node[leaf] = np.array(a)  # a copy: t.numpy() shares t's memory
+    return variables
 
 
 def random_flax_variables(model: torch.nn.Module, seed: int) -> dict:

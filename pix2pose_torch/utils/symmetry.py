@@ -7,7 +7,8 @@ training poses share one canonical azimuth; if the transformed symmetry
 axis is near-parallel to the camera z-axis, lock in-plane rotation
 augmentation.
 
-A copy of the two canonicalizations of :mod:`pix2pose_tpu.utils.symmetry`.
+A copy of :mod:`pix2pose_tpu.utils.symmetry`: the two canonicalizations
+and the trainer's symmetry pool.
 """
 
 from __future__ import annotations
@@ -85,3 +86,30 @@ def canonicalize_discrete(rot: np.ndarray, pool: np.ndarray):
             best, best_key = m, key
     return best.astype(rot.dtype if hasattr(rot, "dtype")
                        else np.float32)
+
+
+def training_sym_pool(ds, obj_id: int, out_root=None) -> np.ndarray:
+    """The symmetry pool the TRAINER should argmin over: the geometric
+    pool (``BopDataset.symmetry_pool``) filtered to the members the pair
+    renderer's appearance probe marked as VISUAL symmetries
+    (``<out_root>/<obj:02d>/meta.json: visual_sym_idx``; ``out_root``
+    defaults to ``<dataset>/train_xyz``). Falls back to the full
+    geometric pool when no probe record exists (pairs rendered by an
+    older version, or externally supplied data), i.e. exact reference
+    behavior. Evaluation always keeps the full geometric pool.
+    """
+    import json
+    import os
+
+    pool = ds.symmetry_pool(obj_id)
+    meta_p = os.path.join(out_root or os.path.join(ds.dir, "train_xyz"),
+                          f"{obj_id:02d}", "meta.json")
+    try:
+        with open(meta_p) as f:
+            idx = json.load(f).get("visual_sym_idx")
+    except (OSError, ValueError):
+        idx = None
+    if not idx:
+        return pool
+    idx = [i for i in idx if 0 <= i < pool.shape[0]]
+    return pool[idx] if idx else pool
