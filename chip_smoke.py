@@ -80,6 +80,24 @@ then drives the port's paths through the entry points a user calls:
            object 1 with the trained and the initial weights (``train_eval``;
            rows finite, ARs in [0, 1]; no row, AR 0, when no pose passes
            the estimator's gates).
+  phase 9  detector training on phase 8's split: ``render-pairs`` for
+           objects 2-4 (K1 under ``det_pairs``); one CenterNet step at
+           full width (ResNet-50, 512 px, B=2) on the card against the
+           CPU in float64 and float32 (phase 8's bars); ``python -m
+           pix2pose_torch.training.detector_train`` at the JAX trainer's
+           defaults (ResNet-50, 512 px, batch 4, Adam 2.5e-4) for 1 500
+           steps (steps/s per 50-step window from CUDA events, the
+           convolutions' TFLOP/s, peak memory, total loss of the first and
+           last 100 steps: the last below 0.6 x the first), resumed for 5
+           steps; 40 steps of the scene-pool regime (losses finite);
+           ``eval-detector --split synthetic`` (box and mask mAP) of the
+           trained and the initial weights (trained box mAP50 >= 0.3 and
+           above the initial's), ``--split test`` on the 6 test images,
+           ``run-detector`` and the serving detector on the trained
+           ``inference.npz`` (detections per test frame beside phase 6's
+           seeded count); RetinaNet for 50 steps (losses finite) and its
+           synthetic mAP; ``scene-gen --num 16`` (files, gt.csv rows,
+           uint8 512 x 512 masks).
   last     eval-icp once more under torch.profiler (device busy share,
            K1's share, costliest device operations), then each entry's
            device operations per call on phase 1's 40 000-face sphere,
@@ -88,12 +106,13 @@ then drives the port's paths through the entry points a user calls:
            CUDA launches slower.
 
 Each path (phases 2, 3, 4's benchmark, 5, 6, phase 7's evaluators,
-eval-icp CLI and metrics, and phase 8's build, pairs and evaluation) runs with every kernel
-launch counter set to 0 just before it and read just after, and fails if
-a kernel it runs was launched no time. Launches that compare a kernel
-with its plain version are not counted. TF32 is off for matmuls and
-cuDNN. Prints the card's name and power limit first, then one JSON line
-of kernel results, the card line again, and last
+eval-icp CLI and metrics, phase 8's build, pairs and evaluation, and phase
+9's pairs) runs with every kernel launch counter set to 0 just before it
+and read just after, and fails if a kernel it runs was launched no time.
+Launches that compare a kernel with its plain version are not counted.
+TF32 is off for matmuls and cuDNN. Prints the card's name and power
+limit first, then one JSON line of kernel results, the card line again,
+and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when anything fails or no CUDA device is present.
 """
@@ -111,6 +130,8 @@ from pathlib import Path
 H, W = 480, 640
 N_HYP = 8
 SEED = 0
+# numbers one phase prints beside another's
+RESULTS = {}
 
 
 def log(msg):
@@ -840,6 +861,7 @@ def phase6_serving_cli(dev, root, detect_runs: int = 20):
                                  f", {n_pose} poses, K1 launches "
                                  f"{launches}")
         lat_ms = np.asarray(lat) * 1e3
+        RESULTS["seeded_detections"] = n_det
 
         def median_ms(fn, runs):
             times = []
@@ -1242,23 +1264,26 @@ RECON_RATIO = 0.6
 
 
 class StepRecorder:
-    """While installed, wraps the trainer's GAN step (``make_train_step``
-    as ``pix2pose_torch.training.train`` calls it): keeps every step's
-    metrics (device tensors, no sync) and records a CUDA event after every
-    ``every`` steps."""
+    """While installed, wraps a trainer's step factory (by default
+    ``make_train_step`` as ``pix2pose_torch.training.train`` calls it):
+    keeps every step's metrics (device tensors, no sync) and records a
+    CUDA event after every ``every`` steps."""
 
-    def __init__(self, every: int):
+    def __init__(self, every: int, module: str = "pix2pose_torch.training."
+                 "train", factory: str = "make_train_step"):
         self.every, self.metrics, self.events = every, [], []
+        self.module, self.factory = module, factory
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from pix2pose_torch.training import train as tr
+        mod = importlib.import_module(self.module)
+        self._saved = make = getattr(mod, self.factory)
 
-        self._saved = make = tr.make_train_step
-
-        def wrapped(cfg):
-            step = make(cfg)
+        def wrapped(*fargs, **fkw):
+            step = make(*fargs, **fkw)
 
             def recorded(*args, **kw):
                 m = step(*args, **kw)
@@ -1270,13 +1295,14 @@ class StepRecorder:
                 return m
             return recorded
 
-        tr.make_train_step = wrapped
+        setattr(mod, self.factory, wrapped)
         return self
 
     def __exit__(self, *exc):
-        from pix2pose_torch.training import train as tr
+        import importlib
 
-        tr.make_train_step = self._saved
+        setattr(importlib.import_module(self.module), self.factory,
+                self._saved)
 
     def windows(self) -> list:
         """Steps per second of each window of ``every`` steps after the
@@ -1563,6 +1589,300 @@ def phase8_training(dev, root):
     return build_launches, pair_launches, eval_launches
 
 
+# Phase 9 trains the detector the port serves at the JAX trainer's defaults
+# (ResNet-50 trunk, head_dim 128, 512 px, batch 4, k_obj 8, Adam 2.5e-4
+# with a 200-step warmup) for DET_STEPS of its 20 000 steps.
+DET_STEPS = 1500
+# its last 100 steps' mean total loss must be below this share of its
+# first 100 steps'
+DET_LOSS_RATIO = 0.6
+# trained box mAP50 on held-out composed scenes: at least this, and above
+# the trainer's initial weights' (twice the JAX package's floor for 500
+# tiny-trunk steps at 192 px, tests/test_training.py)
+DET_MAP50 = 0.3
+RETINA_STEPS = 50
+# the convs a train-mode BatchNorm follows (every trunk conv and ``fuse``):
+# their biases have a zero gradient in exact arithmetic, float32 noise
+_DET_BIAS_BEFORE_BN = ("trunk.", "fuse")
+
+
+def conv_flops(model, x) -> int:
+    """FLOPs (2 per multiply-add) of every convolution in one forward of
+    ``model`` on ``x``, counted by forward hooks from each conv's output
+    size and kernel; a train step costs about 3x (the forward, and the
+    gradients of the inputs and of the weights)."""
+    import math
+
+    import torch
+
+    total = []
+
+    def hook(mod, _, out):
+        total.append(2 * out.numel() * mod.in_channels // mod.groups
+                     * math.prod(mod.kernel_size))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def det_step_card_vs_cpu(dev, ds, back_dir):
+    """One CenterNet step at full width (ResNet-50 trunk, s2d stem, fused
+    heads, 512 px, B=2, the instance-mask term) on the card and on the CPU
+    from the same initial weights and batch (composed on the CPU), with
+    the network in float64 and then in float32 (the outputs and losses
+    stay float32, as the model makes them). Both: losses within 1e-4
+    relative, every parameter within 2 lr (and rounding). float64 at the
+    trainer's lr: parameters within 1e-6 on 99.9% of the elements;
+    float32 at lr 5e-6: 99.5%, without the biases in front of a
+    BatchNorm (phase 8's bars)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.models import CenterNetDetector
+    from pix2pose_torch.training.detector_data import make_detector_batch
+    from pix2pose_torch.training.detector_train import (
+        DetTrainState, init_detector, load_store, make_detector_step)
+
+    store = load_store(ds, back_dir, "cpu")
+    batch = make_detector_batch(store, torch.Generator().manual_seed(SEED),
+                                2, 512, 8)
+    net = init_detector(CenterNetDetector(store.num_classes), SEED)
+    noise = {f"{n}.bias" for n, mod in net.named_modules()
+             if isinstance(mod, torch.nn.Conv2d)
+             and n.startswith(_DET_BIAS_BEFORE_BN)}
+    for dtype, lr, share in ((torch.float64, 2.5e-4, 0.999),
+                             (torch.float32, CMP_LR, 0.995)):
+        out, secs = [], []
+        for d in (torch.device("cpu"), dev):
+            model = copy.deepcopy(net).to(d, dtype)
+            st = DetTrainState(model=model, opt=torch.optim.Adam(
+                model.parameters(), lr=0.0, betas=(0.9, 0.999), eps=1e-8))
+            b = {k: v.to(d) for k, v in batch.items()}
+            b["image"] = b["image"].to(dtype)
+            t0 = time.perf_counter()
+            m = make_detector_step(model)(st, b, lr)
+            m = {k: float(v) for k, v in m.items()}
+            secs.append(time.perf_counter() - t0)
+            out.append((m, {k: v.detach().cpu() for k, v in
+                            model.named_parameters()}))
+        (m_cpu, p_cpu), (m_card, p_card) = out
+        rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+        if max(rel.values()) > 1e-4:
+            raise AssertionError(f"phase 9 step {dtype}: losses card "
+                                 f"{m_card} cpu {m_cpu}")
+        n_ok = n_all = 0
+        for k, a in p_cpu.items():
+            diff = (a - p_card[k]).abs()
+            bound = 2 * lr + 4 * float(np.spacing(a.abs().max().numpy()))
+            if float(diff.max()) > bound:
+                raise AssertionError(f"phase 9 step {dtype}: {k} moved "
+                                     f"{float(diff.max())} apart")
+            if dtype == torch.float64 or k not in noise:
+                n_ok += int((diff <= 1e-6).sum())
+                n_all += diff.numel()
+        log(f"phase 9: one CenterNet step (ResNet-50, 512 px, B=2, "
+            f"{dtype}, lr {lr:g}) on the card against the CPU: losses "
+            f"{m_card}, "
+            f"relative differences "
+            f"{({k: f'{v:.2e}' for k, v in rel.items()})}; parameters "
+            f"within 1e-6: {n_ok / n_all:.6f}; step wall CPU "
+            f"{secs[0]:.1f} s, card {secs[1]:.2f} s (first call)")
+        if n_ok < share * n_all:
+            raise AssertionError(f"phase 9 step {dtype}: parameters within "
+                                 f"1e-6 {n_ok / n_all:.6f}")
+
+
+def eval_detector(cli, args, label):
+    """``eval-detector`` through the CLI; logs and returns its result."""
+    t0 = time.perf_counter()
+    res = cli(["eval-detector"] + args)
+    mask = res.get("mask", {})
+    log(f"phase 9 eval-detector {label}: box mAP50 {res['mAP50']:.4f}, "
+        f"mAP75 {res['mAP75']:.4f}, mAP {res['mAP']:.4f}; mask mAP50 "
+        f"{mask.get('mAP50', float('nan')):.4f}, mAP75 "
+        f"{mask.get('mAP75', float('nan')):.4f}; {res['n_det']} "
+        f"detections, {res['n_gt_total']} GT over {res['n_images']} "
+        f"images; {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase9_detector_training(dev, root):
+    """Detector training on phase 8's train split: ``render-pairs`` for
+    the rehearsal objects phase 8 did not render (K1 under
+    ``det_pairs``); one CenterNet step on the card against the CPU;
+    ``python -m pix2pose_torch.training.detector_train`` at the full-width
+    defaults for ``DET_STEPS`` steps (steps/s per 50-step window after the
+    first, peak memory, the first and last 100 steps' total loss), then
+    resumed for 5 steps; ``eval-detector --split synthetic`` of the
+    trained weights and of the initial ones (box and mask mAP), ``--split
+    test`` on the split's 6 test images, ``run-detector`` and the
+    serving detector (``TorchDetector``) on the trained ``inference.npz``;
+    RetinaNet for ``RETINA_STEPS`` steps and its synthetic mAP;
+    ``scene-gen --num 16``. Returns the K1 launches of the pairs."""
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.models import CenterNetDetector
+    from pix2pose_torch.training import detector_train as dt
+    from pix2pose_torch.training import retinanet_train as rt
+    from pix2pose_torch.utils.checkpoint import export_inference
+    from pix2pose_torch.utils.cli import load_torch_detector
+    from pix2pose_torch.utils.convert import state_dict_to_flax
+
+    card = card_line()
+    name = "rehearsal_train"
+    dev_arg = ["--device", str(dev)]
+    cfg = os.path.join(root, "cfg_train.json")
+    back_dir = os.path.join(root, "backs")
+    ds = BopDataset(root, name, train=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_pairs = {}
+    for obj in ds.model_ids:
+        d = os.path.join(ds.dir, "train_xyz", f"{obj:02d}")
+        if not os.path.isdir(d):
+            cli(["render-pairs", cfg, name, "--obj", str(obj)] + dev_arg)
+        n_pairs[obj] = len([f for f in os.listdir(d) if f.endswith(".npy")])
+    launches = read_counts()["binned_zbuffer"]
+    log(f"phase 9: render-pairs for the other objects in "
+        f"{time.perf_counter() - t0:.2f} s, K1 launches {launches}; pairs "
+        f"per object {n_pairs}")
+    if launches == 0 or min(n_pairs.values()) == 0:
+        raise AssertionError(f"phase 9: pairs {n_pairs}, K1 {launches}")
+
+    det_step_card_vs_cpu(dev, ds, back_dir)
+
+    # the full-width run through the trainer's CLI, then resumed; its
+    # memory is the peak above what the earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with StepRecorder(50, "pix2pose_torch.training.detector_train",
+                      "make_detector_step") as rec:
+        dt.main([cfg, name, back_dir, "--steps", str(DET_STEPS)] + dev_arg)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    rates = rec.windows()
+    total = rec.series("total")
+    first, last = float(total[:100].mean()), float(total[-100:].mean())
+    parts = {k: (round(float(rec.series(k)[:100].mean()), 4),
+                 round(float(rec.series(k)[-100:].mean()), 4))
+             for k in ("heat", "wh", "off", "seg", "mask")}
+    log(f"phase 9 detector_train: CenterNet ResNet-50, 512 px, batch 4, "
+        f"{len(total)} steps in {wall:.1f} s; steps/s per 50-step window "
+        f"after the first (CUDA events): {[round(r, 2) for r in rates]}, "
+        f"median {float(np.median(rates)):.2f}; peak memory {peak:.2f} GiB "
+        f"above the {held / 2 ** 30:.2f} GiB held before; total loss mean "
+        f"of the first 100 steps {first:.4f}, of the last 100 {last:.4f} "
+        f"(ratio {last / first:.3f}); parts first / last "
+        f"100 {parts}; on {card}")
+    if not np.isfinite(total).all() or last >= DET_LOSS_RATIO * first:
+        raise AssertionError(f"phase 9: total loss {first} -> {last}")
+    step_flops = 3 * conv_flops(dt.CenterNetDetector(len(ds.model_ids))
+                                .to(dev), torch.zeros(4, 512, 512, 3,
+                                                      device=dev))
+    rate = float(np.median(rates))
+    log(f"phase 9: {step_flops / 1e9:.1f} GFLOP of convolutions per step "
+        f"(3 x the forward's, conv_flops), so {rate:.2f} steps/s is "
+        f"{step_flops * rate / 1e12:.2f} TFLOP/s, "
+        f"{100 * step_flops * rate / FP32_OPS_PER_S:.1f}% of the float32 "
+        f"peak")
+    state = dt.main([cfg, name, back_dir, "--steps", "5"] + dev_arg)
+    if state.step != DET_STEPS + 5:
+        raise AssertionError(f"phase 9: resume: step {state.step}")
+    log(f"phase 9 detector_train resumed: 5 more steps, state at step "
+        f"{state.step}")
+    # the scene-pool regime (a ring of 64 packed scenes, 16 composed
+    # every 4th step), from the initial weights
+    with StepRecorder(10, "pix2pose_torch.training.detector_train",
+                      "make_detector_step") as prec:
+        dt.train_detector(dt.load_store(ds, back_dir, dev), steps=40,
+                          pool_size=64, log_every=40, device=dev)
+    ptotal = prec.series("total")
+    log(f"phase 9 pooled regime: 40 steps, "
+        f"{float(np.median(prec.windows())):.2f} steps/s (median of 10-step"
+        f" windows), total loss first / last {ptotal[0]:.4f} / "
+        f"{ptotal[-1]:.4f}")
+    if not np.isfinite(ptotal).all():
+        raise AssertionError("phase 9: a pooled-regime loss is not finite")
+
+    synth = [cfg, name, "--split", "synthetic"] + dev_arg
+    trained = eval_detector(cli, synth, "synthetic, trained weights")
+    test_res = eval_detector(cli, [cfg, name, "--split", "test"] + dev_arg,
+                             "test split, trained weights")
+    det_json = os.path.join(root, "det_trained.json")
+    cli(["run-detector", cfg, name, "--out", det_json] + dev_arg)
+    with open(det_json) as f:
+        n_json = len(json.load(f))
+    test = BopDataset(root, name, train=False)
+    served = load_torch_detector(test, dev)   # strict, as serve loads it
+    n_det = [len(served.detect(0, i, test.load_rgb(0, i)))
+             for i in range(6)]
+    log(f"phase 9: run-detector wrote {n_json} detections; the serving "
+        f"detector (TorchDetector, trained inference.npz) finds {n_det} "
+        f"per test frame at score_th 0.3 (phase 6's seeded detector: "
+        f"{RESULTS.get('seeded_detections')}); test split n_gt "
+        f"{test_res['n_gt_total']}")
+
+    # RetinaNet at full width, then its synthetic mAP
+    with StepRecorder(10, "pix2pose_torch.training.retinanet_train",
+                      "make_retinanet_step") as rrec:
+        rt.main([cfg, name, back_dir, "--steps", str(RETINA_STEPS)]
+                + dev_arg)
+    rtotal = rrec.series("total")
+    log(f"phase 9 retinanet_train: ResNet-50, 512 px, batch 4, "
+        f"{len(rtotal)} steps, {float(np.median(rrec.windows())):.2f} "
+        f"steps/s (median of 10-step windows); total loss first / last "
+        f"{rtotal[0]:.4f} / {rtotal[-1]:.4f}; all finite "
+        f"{bool(np.isfinite(rtotal).all())}")
+    if not all(np.isfinite(rrec.series(k)).all()
+               for k in ("total", "cls", "box")):
+        raise AssertionError("phase 9: a RetinaNet loss is not finite")
+    eval_detector(cli, [cfg, name, "--split", "synthetic", "--head",
+                        "retinanet"] + dev_arg, "synthetic, RetinaNet")
+
+    t0 = time.perf_counter()
+    cli(["scene-gen", cfg, name, back_dir, "--num", "16"] + dev_arg)
+    out = os.path.join(ds.dir, "train_detect")
+    jpgs = sorted(f for f in os.listdir(out) if f.endswith(".jpg"))
+    with open(os.path.join(out, "gt.csv")) as f:
+        rows = [r for r in f.read().splitlines() if r]
+    masks = [np.load(os.path.join(out, "mask", f"{i:06d}.npy"))
+             for i in range(16)]
+    log(f"phase 9 scene-gen: {len(jpgs)} scenes, {len(rows)} gt.csv rows "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if len(jpgs) != 16 or not rows or any(
+            m.dtype != np.uint8 or m.shape != (512, 512) for m in masks):
+        raise AssertionError("phase 9: scene-gen output")
+
+    # the trainer's initial weights in the trained ones' place
+    export_inference(os.path.join(ds.dir, "weight_detection", "centernet"),
+                     state_dict_to_flax(dt.init_detector(
+                         CenterNetDetector(len(ds.model_ids)), 0)
+                         .state_dict()))
+    initial = eval_detector(cli, synth, "synthetic, initial weights")
+    log(f"phase 9: box mAP50 on held-out composed scenes trained "
+        f"{trained['mAP50']:.4f} vs initial {initial['mAP50']:.4f}; on "
+        f"{card}")
+    if not trained["mAP50"] >= DET_MAP50 or not (
+            trained["mAP50"] > initial["mAP50"]):
+        raise AssertionError(f"phase 9: trained box mAP50 "
+                             f"{trained['mAP50']} (initial "
+                             f"{initial['mAP50']})")
+    return launches
+
+
 def eval_icp_device_share(dev, root):
     """Phase 7b's eval-icp once more under torch.profiler (CUDA activity
     only): the device time of all its operations and of K1's three
@@ -1640,6 +1960,7 @@ def main() -> int:
         cube_set, oracle, metrics_a = phase7a_oracle(dev)
         icp, metrics_b = phase7b_cli(dev, root)
         train_set, train_pairs, train_eval = phase8_training(dev, root)
+        det_pairs = phase9_detector_training(dev, root)
         # Last, after every path: a torch.profiler session leaves the
         # process's later CUDA launches slower, which would show in the
         # host-bound paths.
@@ -1651,6 +1972,7 @@ def main() -> int:
     by_path["train_dataset"] = {"binned_zbuffer": train_set}
     by_path["train_pairs"] = {"binned_zbuffer": train_pairs}
     by_path["train_eval"] = {"binned_zbuffer": train_eval}
+    by_path["det_pairs"] = {"binned_zbuffer": det_pairs}
     for label, core, rec, (packed, bounds) in (
             ("phase 1 sphere", rasterizer_cuda._binned_core_cuda, rec_k1,
              in_k1),

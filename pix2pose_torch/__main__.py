@@ -16,6 +16,8 @@ _COMMANDS = {
                      "tools/2_2_render_pix2pose_training.py"),
     "render-train-views": ("pix2pose_torch.tools.render_train_views",
                            "tools/render_training_img.py"),
+    "scene-gen": ("pix2pose_torch.tools.scene_gen_detection",
+                  "tools/1_1_scene_gen_for_detection_maskrcnn.py"),
     "eval": ("pix2pose_torch.eval.bop_eval",
              "tools/5_evaluation_bop_basic.py"),
     "eval-icp": ("pix2pose_torch.eval.bop_eval_icp",
@@ -24,6 +26,8 @@ _COMMANDS = {
               "ros_kinetic/ros_pix2pose.py (TCP transport here)"),
     "run-detector": ("pix2pose_torch.tools.run_detector",
                      "tools/mask_rcnn_util.py inference path"),
+    "eval-detector": ("pix2pose_torch.tools.eval_detector",
+                      "(no reference equivalent: in-repo mAP harness)"),
     "train": ("pix2pose_torch.training.train",
               "tools/3_train_pix2pose.py"),
 }

@@ -1,4 +1,4 @@
-"""In-repo 2D detector, the inference half (port of
+"""In-repo 2D detector and its training losses (port of
 :mod:`pix2pose_tpu.models.detector`).
 
 A center-point detector on the ResNet-50 trunk (or the small
@@ -15,10 +15,18 @@ and the dynamic mask FCN per peak as batched matmuls, masks clipped to
 their box. Ties in the top-k go to the lower flat index, as
 ``jax.lax.top_k`` orders them.
 
+Training: :func:`detector_loss` sums CenterNet's penalty-reduced focal
+loss on the heatmap, L1 on sizes and offsets at the centers, BCE on the
+semantic masks and, with instance targets, :func:`instance_mask_loss`
+(CondInst's dice loss of the dynamic FCN run at each GT center). The two
+BatchNorms (``TinyTrunk``'s and ``fuse_bn``) are
+:class:`~pix2pose_torch.models.batchnorm.BatchNorm2d`: their train-mode
+running variance is the biased one, as flax's.
+
 Layouts: the model takes NHWC images like the JAX package and returns a
 :class:`DetectorOut` of NHWC maps; inside it runs NCHW. Module names
 match the flax tree (``trunk``, ``lat3``, ``heads_conv``, ``heat_out``,
-...). The losses wait for detector training.
+...).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from pix2pose_torch.models.ae import _same_pad
+from pix2pose_torch.models.batchnorm import BatchNorm2d
 from pix2pose_torch.models.resnet50 import ResNet50Trunk
 
 MASK_DIM = 8             # channels of the shared mask-feature map
@@ -78,7 +87,7 @@ class TinyTrunk(nn.Module):
         for name, cin, cout, stride in spec:
             setattr(self, f"{name}_conv", _SameConv(cin, cout, 3, stride))
             setattr(self, f"{name}_bn",
-                    nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01))
+                    BatchNorm2d(cout, eps=1e-3, momentum=0.01))
 
     def _block(self, name, y):
         return F.relu(getattr(self, f"{name}_bn")(
@@ -121,7 +130,7 @@ class CenterNetDetector(nn.Module):
         self.lat3 = nn.Conv2d(c3, head_dim, 1)
         self.lat2 = nn.Conv2d(c2, head_dim, 1)
         self.fuse = nn.Conv2d(head_dim, head_dim, 3, padding=1)
-        self.fuse_bn = nn.BatchNorm2d(head_dim, eps=1e-3, momentum=0.01)
+        self.fuse_bn = BatchNorm2d(head_dim, eps=1e-3, momentum=0.01)
         if self.layout == "shared":
             self.heads_conv = nn.Conv2d(head_dim, shared_head_dim, 3,
                                         padding=1)
@@ -178,26 +187,28 @@ def _split_ctrl(ctrl):
 def dynamic_mask_logits(mfeat, ctrl, center_vu):
     """Instance mask logits over the stride grid, for K peaks at once.
 
-    mfeat (hs, ws, MASK_DIM) shared features; ctrl (K, N_CTRL) controllers
-    gathered at the peaks; center_vu (K, 2) peak (v, u) in grid units.
-    Returns (K, hs, ws). Inputs are the features concatenated with
+    mfeat (..., hs, ws, MASK_DIM) shared features; ctrl (..., K, N_CTRL)
+    controllers gathered at the peaks; center_vu (..., K, 2) peak (v, u)
+    in grid units; the leading axes (none, or the batch) agree. Returns
+    (..., K, hs, ws). Inputs are the features concatenated with
     peak-relative coordinates, then three 1x1 layers as batched matmuls.
     """
-    hs, ws, _ = mfeat.shape
-    k = ctrl.shape[0]
+    hs, ws = mfeat.shape[-3:-1]
+    *lead, k, _ = ctrl.shape
     dev = mfeat.device
-    vv = (torch.arange(hs, dtype=torch.float32, device=dev)[None, :]
-          - center_vu[:, 0:1]) / REL_NORM                    # (K, hs)
-    uu = (torch.arange(ws, dtype=torch.float32, device=dev)[None, :]
-          - center_vu[:, 1:2]) / REL_NORM                    # (K, ws)
-    rel = torch.stack([vv[:, :, None].expand(k, hs, ws),
-                       uu[:, None, :].expand(k, hs, ws)], dim=-1)
-    x = torch.cat([mfeat.expand(k, hs, ws, MASK_DIM), rel], dim=-1)
-    x = x.reshape(k, hs * ws, _CTRL_IN)
+    vv = (torch.arange(hs, dtype=torch.float32, device=dev)
+          - center_vu[..., 0:1]) / REL_NORM                  # (..., K, hs)
+    uu = (torch.arange(ws, dtype=torch.float32, device=dev)
+          - center_vu[..., 1:2]) / REL_NORM                  # (..., K, ws)
+    rel = torch.stack([vv[..., :, None].expand(*lead, k, hs, ws),
+                       uu[..., None, :].expand(*lead, k, hs, ws)], dim=-1)
+    x = torch.cat([mfeat[..., None, :, :, :].expand(*lead, k, hs, ws,
+                                                    MASK_DIM), rel], dim=-1)
+    x = x.reshape(*lead, k, hs * ws, _CTRL_IN)
     (w1, b1), (w2, b2), (w3, b3) = _split_ctrl(ctrl)
-    x = F.relu(x @ w1 + b1[:, None])
-    x = F.relu(x @ w2 + b2[:, None])
-    return (x @ w3 + b3[:, None])[..., 0].reshape(k, hs, ws)
+    x = F.relu(x @ w1 + b1[..., None, :])
+    x = F.relu(x @ w2 + b2[..., None, :])
+    return (x @ w3 + b3[..., None, :])[..., 0].reshape(*lead, k, hs, ws)
 
 
 class Detections(NamedTuple):
@@ -250,9 +261,8 @@ def decode_detections(out: DetectorOut, top_k: int = 32, stride: int = 4,
         ctrl = gather_hw(out.ctrl)
         grid_center = torch.stack([pv + off[..., 0], pu + off[..., 1]],
                                   dim=-1)
-        logits = torch.stack([dynamic_mask_logits(out.mfeat[i], ctrl[i],
-                                                  grid_center[i])
-                              for i in range(b)])    # (B, K, hs, ws)
+        logits = dynamic_mask_logits(out.mfeat, ctrl,
+                                     grid_center)    # (B, K, hs, ws)
         # the mask lives inside its box (Mask-RCNN semantics)
         gv = torch.arange(h, dtype=torch.float32, device=heat.device) * stride
         gu = torch.arange(w, dtype=torch.float32, device=heat.device) * stride
@@ -261,3 +271,66 @@ def decode_detections(out: DetectorOut, top_k: int = 32, stride: int = 4,
         masks = (logits > 0.0) & in_v[..., :, None] & in_u[..., None, :]
     return Detections(bbox=bbox, score=score, cls=cls,
                       center=torch.stack([cv, cu], dim=-1), mask=masks)
+
+
+def focal_loss(heat_logits, heat_gt, alpha: float = 2.0, beta: float = 4.0):
+    """Penalty-reduced pixel-wise focal loss (CenterNet / CornerNet form).
+
+    ``heat_gt`` is the splatted gaussian target in [0, 1]; only exact 1.0
+    counts as a positive."""
+    p = torch.sigmoid(heat_logits)
+    pos = (heat_gt >= 1.0).to(torch.float32)
+    neg_w = torch.pow(1.0 - heat_gt, beta)
+    eps = 1e-6
+    pos_loss = -torch.pow(1.0 - p, alpha) * torch.log(p + eps) * pos
+    neg_loss = (-torch.pow(p, alpha) * torch.log(1.0 - p + eps) * neg_w
+                * (1.0 - pos))
+    n_pos = torch.clamp(pos.sum(), min=1.0)
+    return (pos_loss.sum() + neg_loss.sum()) / n_pos
+
+
+def instance_mask_loss(out: DetectorOut, gt_center, gt_mask, gt_valid):
+    """Dice loss of the dynamic mask FCN at the GT centers (CondInst
+    training: the controller gathered at each instance's rounded and
+    clipped center, the target that instance's visible mask), over all
+    B x K instances in one batched call.
+
+    gt_center (B, K, 2) float grid centers; gt_mask (B, K, hs, ws) in
+    {0, 1}; gt_valid (B, K) bool."""
+    b, hs, ws, _ = out.mfeat.shape
+    ci = torch.clamp(torch.round(gt_center[..., 0]).long(), 0, hs - 1)
+    cj = torch.clamp(torch.round(gt_center[..., 1]).long(), 0, ws - 1)
+    bi = torch.arange(b, device=ci.device)[:, None]
+    ctrl = out.ctrl[bi, ci, cj]                              # (B, K, N)
+    p = torch.sigmoid(dynamic_mask_logits(out.mfeat, ctrl, gt_center))
+    inter = (p * gt_mask).sum((2, 3))
+    denom = (p * p).sum((2, 3)) + (gt_mask * gt_mask).sum((2, 3))
+    dice = 1.0 - 2.0 * inter / torch.clamp(denom, min=1e-6)
+    valid = gt_valid.to(torch.bool)
+    return (torch.where(valid, dice, 0.0).sum()
+            / torch.clamp(valid.sum().to(torch.float32), min=1.0))
+
+
+def detector_loss(out: DetectorOut, targets: dict, w_heat: float = 1.0,
+                  w_wh: float = 0.1, w_off: float = 1.0, w_seg: float = 1.0,
+                  w_mask: float = 1.0):
+    """(total, parts). ``targets``: ``heat`` (B, h, w, C) gaussians,
+    ``wh`` / ``off`` (B, h, w, 2), ``reg_mask`` (B, h, w) 1 at centers,
+    ``seg`` (B, h, w, C) binary; with ``gt_center`` / ``gt_mask`` /
+    ``gt_valid`` also the instance-mask term (``parts["mask"]``)."""
+    l_heat = focal_loss(out.heat, targets["heat"])
+    m = targets["reg_mask"][..., None]
+    n_pos = torch.clamp(targets["reg_mask"].sum(), min=1.0)
+    l_wh = (torch.abs(out.wh - targets["wh"]) * m).sum() / n_pos
+    l_off = (torch.abs(out.off - targets["off"]) * m).sum() / n_pos
+    seg = out.seg
+    l_seg = torch.mean(F.relu(seg) - seg * targets["seg"]
+                       + torch.log1p(torch.exp(-torch.abs(seg))))
+    total = w_heat * l_heat + w_wh * l_wh + w_off * l_off + w_seg * l_seg
+    parts = {"heat": l_heat, "wh": l_wh, "off": l_off, "seg": l_seg}
+    if "gt_mask" in targets:
+        l_mask = instance_mask_loss(out, targets["gt_center"],
+                                    targets["gt_mask"], targets["gt_valid"])
+        total = total + w_mask * l_mask
+        parts["mask"] = l_mask
+    return total, parts

@@ -55,12 +55,18 @@ def affine_sample(img, mat, out_h: int, out_w: int, fill: float = 0.0):
 def make_affine(center_src, center_out, scale, angle_rad):
     """(B, 2, 3) maps: output px -> source px with rotation ``angle_rad``
     (B,) and uniform ``scale`` (B,) (source px per output px) about
-    ``center_src`` (B, 2) and ``center_out`` (2,)."""
+    ``center_src`` and ``center_out``, each (B, 2) or one (2,) pair for
+    all."""
+    dev = angle_rad.device
+    center_src = torch.as_tensor(center_src, dtype=torch.float32, device=dev)
+    center_out = torch.as_tensor(center_out, dtype=torch.float32, device=dev)
     c = torch.cos(angle_rad) * scale
     s = torch.sin(angle_rad) * scale
     # [sv; su] = R_scaled @ ([i; j] - center_out) + center_src
     a00, a01, a10, a11 = c, -s, s, c
-    b0 = center_src[:, 0] - (a00 * center_out[0] + a01 * center_out[1])
-    b1 = center_src[:, 1] - (a10 * center_out[0] + a11 * center_out[1])
+    b0 = center_src[..., 0] - (a00 * center_out[..., 0]
+                               + a01 * center_out[..., 1])
+    b1 = center_src[..., 1] - (a10 * center_out[..., 0]
+                               + a11 * center_out[..., 1])
     return torch.stack([torch.stack([a00, a01, b0], -1),
                         torch.stack([a10, a11, b1], -1)], 1)

@@ -2,7 +2,7 @@
 trainer's per-epoch train states and the inference artifact.
 
 A train state is ``<weight_dir>/epoch_XXXX.pt``, written with
-``torch.save``: both networks' ``state_dict``, both optimizers', the step
+``torch.save``: each network's and optimizer's ``state_dict``, the step
 and the epoch (the JAX package writes an orbax ``epoch_XXXX/`` directory
 of the same contents). Resuming reads the newest.
 
@@ -27,6 +27,7 @@ ImageNet trunk import).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -52,18 +53,23 @@ def _epoch_path(ckpt_dir: str, epoch: int) -> str:
 
 
 def save_train_state(ckpt_dir: str, state, epoch: int) -> str:
-    """Per-epoch snapshot of a :class:`~pix2pose_torch.training.gan.
-    GanTrainState` (networks with their BatchNorm statistics, optimizer
-    moments and counts, step, epoch); returns the path."""
+    """Per-epoch snapshot of a train state dataclass (a
+    :class:`~pix2pose_torch.training.gan.GanTrainState` or a
+    :class:`~pix2pose_torch.training.detector_train.DetTrainState`): the
+    ``state_dict`` of each network and optimizer field (networks with
+    their BatchNorm statistics, optimizer moments and counts), the other
+    fields (the step) as they are, and the epoch; returns the path."""
     import torch
 
     os.makedirs(ckpt_dir, exist_ok=True)
     path = _epoch_path(ckpt_dir, epoch)
-    torch.save({"gen": state.gen.state_dict(),
-                "disc": state.disc.state_dict(),
-                "gen_opt": state.gen_opt.state_dict(),
-                "disc_opt": state.disc_opt.state_dict(),
-                "step": state.step, "epoch": epoch}, path + ".tmp")
+    snap = {}
+    for name in (f.name for f in dataclasses.fields(state)):
+        value = getattr(state, name)
+        snap[name] = (value.state_dict() if hasattr(value, "state_dict")
+                      else value)
+    snap["epoch"] = epoch
+    torch.save(snap, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
 
@@ -86,20 +92,23 @@ def latest_epoch(ckpt_dir: str) -> int:
 
 def restore_train_state(ckpt_dir: str, state, epoch: int | None = None):
     """Load the given (or newest) epoch snapshot into ``state``'s networks
-    and optimizers, in place, on the device its parameters are on.
-    Returns (state, epoch), or (None, -1) when there is none."""
+    and optimizers, in place, on the device its parameters are on, and
+    set its other fields. Returns (state, epoch), or (None, -1) when there
+    is none."""
     import torch
 
     e = latest_epoch(ckpt_dir) if epoch is None else epoch
     if e < 0:
         return None, -1
-    dev = next(state.gen.parameters()).device
+    names = [f.name for f in dataclasses.fields(state)]
+    dev = next(getattr(state, names[0]).parameters()).device
     snap = torch.load(_epoch_path(ckpt_dir, e), map_location=dev)
-    state.gen.load_state_dict(snap["gen"])
-    state.disc.load_state_dict(snap["disc"])
-    state.gen_opt.load_state_dict(snap["gen_opt"])
-    state.disc_opt.load_state_dict(snap["disc_opt"])
-    state.step = int(snap["step"])
+    for name in names:
+        value = getattr(state, name)
+        if hasattr(value, "load_state_dict"):
+            value.load_state_dict(snap[name])
+        else:
+            setattr(state, name, snap[name])
     return state, int(snap["epoch"])
 
 

@@ -1,8 +1,10 @@
 """Flax variables <-> torch ``state_dict``, for every network the port
-has: the generator (paper and ResNet-50 backbones), the GAN discriminator
-and the CenterNet detector (ResNet-50 or tiny trunk, fused, unfused or
-shared heads). :func:`state_dict_to_flax` is the inverse of
-:func:`flax_to_state_dict`; the trainer exports through it.
+has: the generator (paper and ResNet-50 backbones), the GAN
+discriminator, the CenterNet detector (ResNet-50 or tiny trunk, fused,
+unfused or shared heads) and the RetinaNet detector (its ``down4`` /
+``down5``, ``lat*``, ``smooth*`` and ``cls_*`` / ``box_*`` subnet
+convs). :func:`state_dict_to_flax` is the inverse of
+:func:`flax_to_state_dict`; the trainers export through it.
 
 The port's modules carry the flax tree's names, so conversion is a
 renaming plus three layout changes, and nothing is guessed from shapes:
@@ -22,14 +24,17 @@ input is the variables tree as nested dicts of numpy arrays.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 # flax module names whose 4-D kernel belongs to a ConvTranspose
 _TRANSPOSED = ("deconv", "head_xyz", "head_prob")
-# flax ``bias_init`` constants that are not zero (the detector's heat and
-# seg outputs start at p ~ 0.1)
-_BIAS_INIT = {"heat_out": -2.19, "seg_out": -2.19}
+# flax ``bias_init`` constants that are not zero: the CenterNet heat and
+# seg outputs start at p ~ 0.1, RetinaNet's classifier at p = 0.01
+BIAS_INIT = {"heat_out": -2.19, "seg_out": -2.19,
+             "cls_out": -math.log((1 - 0.01) / 0.01)}
 
 
 def _leaves(tree, prefix=()):
@@ -105,8 +110,9 @@ def state_dict_to_flax(state_dict: dict) -> dict:
 def random_flax_variables(model: torch.nn.Module, seed: int) -> dict:
     """Seeded He-normal variables in FLAX layout for ``model``'s
     architecture (kernels in flax axis order, biases at flax's init: zero,
-    or -2.19 for the detector's heat and seg outputs; unit BatchNorm scale
-    and variance, zero mean), as nested dicts of numpy arrays. Stands in
+    or :data:`BIAS_INIT`'s constant for the detectors' classifiers; unit
+    BatchNorm scale and variance, zero mean), as nested dicts of numpy
+    arrays. Stands in
     for a trained checkpoint where only shapes matter."""
     rng = np.random.default_rng(seed)
     variables: dict = {"params": {}, "batch_stats": {}}
@@ -136,7 +142,7 @@ def random_flax_variables(model: torch.nn.Module, seed: int) -> dict:
             put("params", mod + ["scale"], np.ones(shape))
         elif name == "bias":
             put("params", mod + ["bias"],
-                np.full(shape, _BIAS_INIT.get(mod[-1], 0.0)))
+                np.full(shape, BIAS_INIT.get(mod[-1], 0.0)))
         elif name == "running_mean":
             put("batch_stats", mod + ["mean"], np.zeros(shape))
         elif name == "running_var":

@@ -30,7 +30,10 @@ def test_port_imports_no_jax():
 
     mods = sorted(m.name for m in pkgutil.walk_packages(
         pix2pose_torch.__path__, "pix2pose_torch."))
-    assert "pix2pose_torch.ops.rasterizer_cuda" in mods
+    for m in ("ops.rasterizer_cuda", "training.detector_train",
+              "training.retinanet_train", "eval.detection_metrics",
+              "tools.eval_detector", "tools.scene_gen_detection"):
+        assert f"pix2pose_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
