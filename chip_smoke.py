@@ -85,7 +85,7 @@ then drives the port's paths through the entry points a user calls:
            full width (ResNet-50, 512 px, B=2) on the card against the
            CPU in float64 and float32 (phase 8's bars); ``python -m
            pix2pose_torch.training.detector_train`` at the JAX trainer's
-           defaults (ResNet-50, 512 px, batch 4, Adam 2.5e-4) for 1 500
+           defaults (ResNet-50, 512 px, batch 4, Adam 2.5e-4) for 1 000
            steps (steps/s per 50-step window from CUDA events, the
            convolutions' TFLOP/s, peak memory, total loss of the first and
            last 100 steps: the last below 0.6 x the first), resumed for 5
@@ -98,6 +98,28 @@ then drives the port's paths through the entry points a user calls:
            seeded count); RetinaNet for 50 steps (losses finite) and its
            synthetic mAP; ``scene-gen --num 16`` (files, gt.csv rows,
            uint8 512 x 512 masks).
+  phase 10 the whole reference flow in one command, ``python -m
+           pix2pose_torch rehearsal``, at the JAX rehearsal's full width
+           (48 train and 6 test images at 480x640, 4 objects, the paper
+           generator at batch 32 per object trained by the multi-object
+           trainer, CenterNet ResNet-50 at 384 px, batch 8, k_obj 8, score
+           threshold 0.2, max_det 4, ICP on) with the step counts cut to
+           REHEARSAL_GAN_STEPS and REHEARSAL_DET_STEPS (K1 under
+           ``rehearsal``). Fails unless every summary key of the JAX tool
+           is there, detections.json, weights.pt and the 4 CSVs are
+           written, every AR is finite and in [0, 1], the test split's box
+           mAP50 is >= 0.3 and the two detector transports' AR agree
+           within 0.02 (RGB and RGB-D). Prints each stage's wall, the
+           fused GAN steps/s and the detector's (CUDA events over 100-step
+           windows), peak memory, the mAP and AR tables.
+  phase 11 ``python -m pix2pose_torch ab-e2e`` on the card (K1 under
+           ``ab_e2e``): A = A (1 seed, 300 steps, no override, A and B
+           trained apart with ``--retrain``), whose delta must be exactly
+           0 (float32 training and evaluation repeat on the card),
+           then 2 seeds x 500 steps of ``--b train.compute_dtype=
+           bfloat16``: the rows, mean and min delta and the pass flag,
+           failing only on a non-finite AR or an exit code other than 0
+           or 1.
   last     eval-icp once more under torch.profiler (device busy share,
            K1's share, costliest device operations), then each entry's
            device operations per call on phase 1's 40 000-face sphere,
@@ -106,11 +128,14 @@ then drives the port's paths through the entry points a user calls:
            CUDA launches slower.
 
 Each path (phases 2, 3, 4's benchmark, 5, 6, phase 7's evaluators,
-eval-icp CLI and metrics, phase 8's build, pairs and evaluation, and phase
-9's pairs) runs with every kernel launch counter set to 0 just before it
-and read just after, and fails if a kernel it runs was launched no time.
+eval-icp CLI and metrics, phase 8's build, pairs and evaluation, phase
+9's pairs, phase 10's rehearsal and phase 11's ab-e2e) runs with every
+kernel launch counter set to 0 just before it and read just after, and
+fails if a kernel it runs was launched no time.
 Launches that compare a kernel with its plain version are not counted.
-TF32 is off for matmuls and cuDNN. Prints the card's name and power
+TF32 is off for matmuls and cuDNN; the generator's training steps and
+passes run cuDNN's deterministic algorithms (``models/ae.py:
+deterministic_cudnn``). Prints the card's name and power
 limit first, then one JSON line of kernel results, the card line again,
 and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
@@ -1265,12 +1290,13 @@ RECON_RATIO = 0.6
 
 class StepRecorder:
     """While installed, wraps a trainer's step factory (by default
-    ``make_train_step`` as ``pix2pose_torch.training.train`` calls it):
+    ``make_train_step`` as ``pix2pose_torch.training.multi``, which
+    ``train`` runs with one object, calls it):
     keeps every step's metrics (device tensors, no sync) and records a
     CUDA event after every ``every`` steps."""
 
     def __init__(self, every: int, module: str = "pix2pose_torch.training."
-                 "train", factory: str = "make_train_step"):
+                 "multi", factory: str = "make_train_step"):
         self.every, self.metrics, self.events = every, [], []
         self.module, self.factory = module, factory
 
@@ -1317,23 +1343,6 @@ class StepRecorder:
         import torch
 
         return torch.stack([m[key] for m in self.metrics]).cpu().numpy()
-
-
-def rehearsal_backs(back_dir):
-    """Backgrounds as the JAX rehearsal builds them
-    (``pix2pose_tpu/tools/rehearsal.py:180-193``): 5 noise images and 3
-    solid ones, 120x160."""
-    import numpy as np
-    from PIL import Image
-
-    os.makedirs(back_dir, exist_ok=True)
-    rng = np.random.RandomState(0)
-    for i in range(5):
-        Image.fromarray(rng.randint(0, 255, (120, 160, 3)).astype(
-            np.uint8)).save(os.path.join(back_dir, f"b{i}.png"))
-    for i, val in enumerate((255, 230, 160)):
-        Image.fromarray(np.full((120, 160, 3), val, np.uint8)).save(
-            os.path.join(back_dir, f"s{i}.png"))
 
 
 # biases a train-mode BatchNorm follows: zero gradient in exact arithmetic,
@@ -1467,6 +1476,7 @@ def phase8_training(dev, root):
     from pix2pose_torch.data.bop import BopDataset, get_target_list
     from pix2pose_torch.data.synthetic_bop import build_rehearsal_dataset
     from pix2pose_torch.models import AutoEncoder
+    from pix2pose_torch.tools.rehearsal import rehearsal_backs
     from pix2pose_torch.training.gan import init_like_flax
     from pix2pose_torch.utils.checkpoint import export_inference
     from pix2pose_torch.utils.convert import state_dict_to_flax
@@ -1591,8 +1601,9 @@ def phase8_training(dev, root):
 
 # Phase 9 trains the detector the port serves at the JAX trainer's defaults
 # (ResNet-50 trunk, head_dim 128, 512 px, batch 4, k_obj 8, Adam 2.5e-4
-# with a 200-step warmup) for DET_STEPS of its 20 000 steps.
-DET_STEPS = 1500
+# with a 200-step warmup) for DET_STEPS of its 20 000 steps (1 500 until
+# phases 10-11 came, cut to keep the script inside its time limit).
+DET_STEPS = 1000
 # its last 100 steps' mean total loss must be below this share of its
 # first 100 steps'
 DET_LOSS_RATIO = 0.6
@@ -1883,6 +1894,186 @@ def phase9_detector_training(dev, root):
     return launches
 
 
+# Phase 10 runs the JAX rehearsal's recipe at its full width: 48 train and
+# 6 test images at 480x640, 4 objects, the paper generator at batch 32 per
+# object, CenterNet (ResNet-50) at 384 px, batch 8, k_obj 8, score
+# threshold 0.2, max_det 4, outlier thresholds (0.1, 0.2, 0.3), ICP on.
+# Only the step counts are cut from the JAX defaults of 6 000 and 3 000,
+# so that the whole script stays inside its time limit.
+REHEARSAL_GAN_STEPS = 600
+REHEARSAL_DET_STEPS = 1000
+# the test split's box mAP50 must reach this
+REHEARSAL_TEST_MAP50 = 0.3
+# the two detector transports' AR may differ by this much (the JAX
+# rehearsal recorded them equal)
+TRANSPORT_AR_GAP = 0.02
+# the JAX rehearsal's summary keys (pix2pose_tpu/tools/rehearsal.py)
+REHEARSAL_KEYS = ("root", "det_scale_range", "det_box_mAP50",
+                  "det_box_mAP75", "det_mask_mAP50", "det_mask_mAP75",
+                  "det_test_box_mAP50", "det_test_mask_mAP50",
+                  "det_test_n_gt", "det_test_n_det", "wall_s") + tuple(
+    f"AR_{leg}_{t}{suffix}" for t in ("centernet", "precomputed")
+    for leg, suffix in (("rgb", ""), ("rgb", "_per_object"), ("rgbd", "")))
+
+
+def phase10_rehearsal(dev, root):
+    """``python -m pix2pose_torch rehearsal`` at full width with
+    ``REHEARSAL_GAN_STEPS`` and ``REHEARSAL_DET_STEPS`` steps: each
+    stage's wall, the fused GAN steps/s (CUDA events over 100-step
+    windows) and the detector's, peak memory, the mAP and AR tables.
+    Fails unless every JAX summary key is there, the outputs are written,
+    every AR is finite and in [0, 1], the test box mAP50 reaches
+    ``REHEARSAL_TEST_MAP50`` and the two transports' AR agree within
+    ``TRANSPORT_AR_GAP``. Returns the K1 launches."""
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+
+    card = card_line()
+    out_root = os.path.join(root, "rehearsal_e2e")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepRecorder(100, "pix2pose_torch.tools.rehearsal",
+                      "make_multi_step") as gan, \
+            StepRecorder(100, "pix2pose_torch.tools.rehearsal",
+                         "make_detector_step") as det:
+        summary = cli(["rehearsal", "--root", out_root, "--gan-steps",
+                       str(REHEARSAL_GAN_STEPS), "--det-steps",
+                       str(REHEARSAL_DET_STEPS), "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = read_counts()["binned_zbuffer"]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    gan_rates, det_rates = gan.windows(), det.windows()
+    recon = gan.series("recon_loss")          # (steps, objects)
+    n_obj = recon.shape[1]
+    log(f"phase 10 rehearsal: {wall:.1f} s; stage walls (s) "
+        f"{summary['stage_s']}; fused GAN steps/s ({n_obj} objects x batch "
+        f"32) per 100-step window after the first (CUDA events): "
+        f"{[round(r, 3) for r in gan_rates]}, median "
+        f"{float(np.median(gan_rates)):.3f} "
+        f"({32 * n_obj * float(np.median(gan_rates)):.1f} samples/s); "
+        f"recon loss per object, mean of the first / last 100 steps "
+        f"{np.round(recon[:100].mean(0), 4).tolist()} / "
+        f"{np.round(recon[-100:].mean(0), 4).tolist()}; detector steps/s "
+        f"(batch 8, 384 px) median {float(np.median(det_rates)):.2f} of "
+        f"{[round(r, 2) for r in det_rates]}; peak memory {peak:.2f} GiB "
+        f"above the {held / 2 ** 30:.2f} GiB held before; K1 launches "
+        f"{launches}; on {card}")
+    missing = [k for k in REHEARSAL_KEYS if k not in summary]
+    if missing:
+        raise AssertionError(f"phase 10: summary lacks {missing}")
+    out = os.path.join(out_root, "out")
+    csvs = sorted(f for f in os.listdir(out) if f.endswith(".csv"))
+    for f in ("detections.json", "weights.pt", "rehearsal_summary.json"):
+        if not os.path.exists(os.path.join(out, f)):
+            raise AssertionError(f"phase 10: {f} not written")
+    if len(csvs) != 4:
+        raise AssertionError(f"phase 10: CSVs {csvs}")
+    log(f"phase 10 detection: scale range {summary['det_scale_range']}; "
+        f"composed scenes box mAP50 / mAP75 {summary['det_box_mAP50']} / "
+        f"{summary['det_box_mAP75']}, mask {summary['det_mask_mAP50']} / "
+        f"{summary['det_mask_mAP75']}; test split box mAP50 "
+        f"{summary['det_test_box_mAP50']}, mask "
+        f"{summary['det_test_mask_mAP50']} ({summary['det_test_n_det']} "
+        f"detections / {summary['det_test_n_gt']} GT)")
+    ars = {}
+    for leg in ("rgb", "rgbd"):
+        for tag in ("centernet", "precomputed"):
+            ar = summary[f"AR_{leg}_{tag}"]
+            ars[leg, tag] = ar["AR"]
+            log(f"phase 10 AR {leg} {tag}: {ar}")
+            if not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                       for v in ar.values()):
+                raise AssertionError(f"phase 10: AR {leg} {tag} {ar}")
+    for o, rec in summary["AR_rgb_centernet_per_object"].items():
+        log(f"phase 10 AR rgb centernet object {o}: {rec}")
+    gaps = {leg: abs(ars[leg, "centernet"] - ars[leg, "precomputed"])
+            for leg in ("rgb", "rgbd")}
+    log(f"phase 10: AR gap between the transports {gaps}")
+    for leg, gap in gaps.items():
+        if gap > TRANSPORT_AR_GAP:
+            raise AssertionError(f"phase 10: {leg} transports differ by "
+                                 f"{gap}")
+    if summary["det_test_box_mAP50"] < REHEARSAL_TEST_MAP50:
+        raise AssertionError(f"phase 10: test box mAP50 "
+                             f"{summary['det_test_box_mAP50']}")
+    if launches == 0:
+        raise AssertionError("phase 10: the rehearsal never launched K1")
+    return launches
+
+
+# Phase 11: ab-e2e on the card. The A = A run trains A and B apart
+# (--retrain) and checks that float32 training and evaluation repeat there
+# (its delta must be exactly 0); the bfloat16 run is a
+# measurement, not a gate: only a non-finite AR or an exit code other
+# than 0 (pass) or 1 (fail) fails the phase.
+AB_SAME_STEPS = 300
+AB_SEEDS = 2
+AB_STEPS = 500
+
+
+def ab_e2e_cli(cli, args):
+    """``ab-e2e`` through the CLI: (exit code, its JSON result, wall s)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = cli(["ab-e2e"] + args)
+        except SystemExit as e:     # a fail exits with status 1
+            code = e.code
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines[:-1]:
+        log(f"  {line}")
+    return code, json.loads(lines[-1]), wall
+
+
+def phase11_ab_e2e(dev, root):
+    """``ab-e2e --seeds 1 --steps AB_SAME_STEPS --retrain`` with no
+    override (delta exactly 0, exit code 0), then ``--seeds AB_SEEDS
+    --steps AB_STEPS --b train.compute_dtype=bfloat16``. Returns the K1
+    launches."""
+    import math
+
+    from pix2pose_torch.__main__ import main as cli
+
+    card = card_line()
+    common = ["--root", os.path.join(root, "ab_e2e"), "--device", str(dev)]
+    reset_counts()
+    code, same, wall = ab_e2e_cli(cli, ["--seeds", "1", "--steps",
+                                    str(AB_SAME_STEPS), "--retrain"]
+                                  + common)
+    log(f"phase 11 ab-e2e A = A, trained twice: {AB_SAME_STEPS} steps each "
+        f"in {wall:.1f} s (with the cube set's build), exit code {code}, "
+        f"rows {same['rows']}")
+    row = same["rows"][0]
+    if code != 0 or row["delta"] != 0.0 or not same["retrained"] or \
+            not math.isfinite(row["ar_a"]):
+        raise AssertionError(f"phase 11: A = A gave {same} (exit {code})")
+    code, bf, wall = ab_e2e_cli(cli, ["--seeds", str(AB_SEEDS), "--steps",
+                                  str(AB_STEPS), "--b",
+                                  "train.compute_dtype=bfloat16"] + common)
+    launches = read_counts()["binned_zbuffer"]
+    log(f"phase 11 ab-e2e float32 (A) vs bfloat16 (B): {AB_SEEDS} seeds x "
+        f"{AB_STEPS} steps in {wall:.1f} s; rows {bf['rows']}; mean delta "
+        f"{bf['mean_delta']}, min delta {bf['min_delta']}, margin "
+        f"{bf['margin']}, pass {bf['pass']} (exit code {code}); K1 launches "
+        f"{launches}; on {card}")
+    if code not in (0, 1) or not all(
+            math.isfinite(r[k]) for r in bf["rows"] for k in ("ar_a",
+                                                             "ar_b")):
+        raise AssertionError(f"phase 11: {bf} (exit {code})")
+    if launches == 0:
+        raise AssertionError("phase 11: ab-e2e never launched K1")
+    return launches
+
+
 def eval_icp_device_share(dev, root):
     """Phase 7b's eval-icp once more under torch.profiler (CUDA activity
     only): the device time of all its operations and of K1's three
@@ -1961,6 +2152,8 @@ def main() -> int:
         icp, metrics_b = phase7b_cli(dev, root)
         train_set, train_pairs, train_eval = phase8_training(dev, root)
         det_pairs = phase9_detector_training(dev, root)
+        rehearsal = phase10_rehearsal(dev, root)
+        ab = phase11_ab_e2e(dev, root)
         # Last, after every path: a torch.profiler session leaves the
         # process's later CUDA launches slower, which would show in the
         # host-bound paths.
@@ -1973,6 +2166,8 @@ def main() -> int:
     by_path["train_pairs"] = {"binned_zbuffer": train_pairs}
     by_path["train_eval"] = {"binned_zbuffer": train_eval}
     by_path["det_pairs"] = {"binned_zbuffer": det_pairs}
+    by_path["rehearsal"] = {"binned_zbuffer": rehearsal}
+    by_path["ab_e2e"] = {"binned_zbuffer": ab}
     for label, core, rec, (packed, bounds) in (
             ("phase 1 sphere", rasterizer_cuda._binned_core_cuda, rec_k1,
              in_k1),

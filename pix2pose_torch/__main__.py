@@ -30,6 +30,13 @@ _COMMANDS = {
                       "(no reference equivalent: in-repo mAP harness)"),
     "train": ("pix2pose_torch.training.train",
               "tools/3_train_pix2pose.py"),
+    "train-multi": ("pix2pose_torch.training.multi",
+                    "train.sh (sequential per-object jobs, fused here)"),
+    "rehearsal": ("pix2pose_torch.tools.rehearsal",
+                  "full reference flow README.md:96-115 on synthetic "
+                  "BOP data"),
+    "ab-e2e": ("pix2pose_torch.tools.ab_e2e",
+               "(no reference equivalent: paired-seed accuracy gate)"),
 }
 
 

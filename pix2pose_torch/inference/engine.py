@@ -38,6 +38,7 @@ import torch
 from torch.func import functional_call
 
 from pix2pose_torch.config import EstimatorConfig
+from pix2pose_torch.models.ae import deterministic_cudnn
 from pix2pose_torch.ops import boxes as boxes_ops
 from pix2pose_torch.ops import crop as crop_ops
 from pix2pose_torch.ops import pnp as pnp_ops
@@ -183,9 +184,10 @@ class Pix2PoseEstimator:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
     def _apply(self, params, x):
-        if params is None:
-            return self.model(x)
-        return functional_call(self.model, params, (x,))
+        with deterministic_cudnn():
+            if params is None:
+                return self.model(x)
+            return functional_call(self.model, params, (x,))
 
     # ------------------------------------------------------------ public
     def _masks(self, det_masks):

@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from pix2pose_torch.config import TrainConfig
+from pix2pose_torch.models.ae import deterministic_cudnn
 from pix2pose_torch.models.losses import bce_logits, transformer_loss
 
 _TRUNK_DECAY = 2e-4  # optax add_decayed_weights: 2x the Keras l2(1e-4)
@@ -143,9 +144,11 @@ def _disc_update(disc, opt, imgs, labels, autocast):
     return loss.detach()
 
 
-def make_train_step(cfg: TrainConfig):
+def make_train_step(cfg: TrainConfig, deterministic: bool = True):
     """``step(state, batch, sym_pool, lr, labels) -> metrics``: one GAN
-    iteration that updates ``state`` in place. ``batch``: ``src``,
+    iteration that updates ``state`` in place, under cuDNN's
+    deterministic algorithms unless ``deterministic`` is False
+    (:func:`~pix2pose_torch.models.ae.deterministic_cudnn`). ``batch``: ``src``,
     ``tgt`` (B, S, S, 3) in [-1, 1] and ``prob_gt`` (B, S, S, 1);
     ``sym_pool`` (n_sym, 3, 3); ``labels`` from :func:`draw_labels`.
     Returns 0-d device tensors (no host sync): ``disc_loss`` (the mean of
@@ -200,4 +203,8 @@ def make_train_step(cfg: TrainConfig):
         return {"disc_loss": (dl1 + dl2) / 2.0, "recon_loss": recon.detach(),
                 "gen_adv_loss": adv.detach(), "gen_total": total.detach()}
 
-    return step
+    def scoped_step(*args, **kw) -> dict:
+        with deterministic_cudnn(deterministic):
+            return step(*args, **kw)
+
+    return scoped_step

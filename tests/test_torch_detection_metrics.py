@@ -22,6 +22,9 @@ LSB (measured 0.21-0.44 and 6-11); the masks equal, ``gt.csv`` and
 import functools
 import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -51,6 +54,8 @@ from pix2pose_torch.utils.synthetic import build_cube_dataset
 from test_torch_detector_data import _St, _blob_patches, jax_draws
 from test_torch_gan import seeded_variables
 from test_torch_train_cli import write_pairs
+
+REPO = Path(__file__).resolve().parent.parent
 
 torch.set_num_threads(2)
 
@@ -375,6 +380,14 @@ def test_scene_gen_matches_jax(cube_set, monkeypatch, tmp_path):
     Image.fromarray(backs[1]).save(back_dir / "b.png")
     args = [cfg, "cubes", str(back_dir), "--num", "2"]
     assert tmain.main(["scene-gen"] + args + ["--device", "cpu"]) == 2
+    # as a process it exits 0: the dispatcher does not turn the returned
+    # scene count into an exit status
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pix2pose_torch", "scene-gen"] + args
+        + ["--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        env={**env, "OMP_NUM_THREADS": "1"}, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
     out = os.path.join(root, "cubes", "train_detect")
     assert sorted(os.listdir(out)) == ["000000.jpg", "000001.jpg", "gt.csv",
                                        "label.csv", "mask"]

@@ -32,7 +32,8 @@ def test_port_imports_no_jax():
         pix2pose_torch.__path__, "pix2pose_torch."))
     for m in ("ops.rasterizer_cuda", "training.detector_train",
               "training.retinanet_train", "eval.detection_metrics",
-              "tools.eval_detector", "tools.scene_gen_detection"):
+              "tools.eval_detector", "tools.scene_gen_detection",
+              "training.multi", "tools.rehearsal", "tools.ab_e2e"):
         assert f"pix2pose_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -19,6 +19,7 @@ from pix2pose_torch.__main__ import main as cli
 from pix2pose_torch.config import TrainConfig
 from pix2pose_torch.data.bop import BopDataset
 from pix2pose_torch.models import build_generator
+from pix2pose_torch.training import multi as tmulti
 from pix2pose_torch.training import train as ttrain
 from pix2pose_torch.utils import checkpoint as ckpt
 from pix2pose_torch.utils.cli import load_generators, require_device
@@ -203,7 +204,7 @@ def test_symmetry_pool_follows_a_custom_data_dir(dataset, monkeypatch):
     assert jpool(JaxBopDataset(str(root), "tiny"), 1).shape == (1, 3, 3)
 
     pools = []
-    real = ttrain.training_sym_pool
+    real = tmulti.training_sym_pool
 
     class PoolSeen(Exception):
         """Stops the trainer once it has its pool."""
@@ -212,7 +213,8 @@ def test_symmetry_pool_follows_a_custom_data_dir(dataset, monkeypatch):
         pools.append(real(*args, **kw))
         raise PoolSeen
 
-    monkeypatch.setattr(ttrain, "training_sym_pool", recording)
+    # ``train`` is the multi-object trainer with one object
+    monkeypatch.setattr(tmulti, "training_sym_pool", recording)
     ds = BopDataset(str(root), "tiny", train=True)
     with pytest.raises(PoolSeen):
         ttrain.train_object(ds, 1, backs, TrainConfig(batch_size=2),
