@@ -72,9 +72,10 @@ then drives the port's paths through the entry points a user calls:
            (losses within 1e-4 relative, parameters within 1e-6 on 99.9%
            and 99.5% of each network's elements);
            ``python -m pix2pose_torch train`` with the paper generator at
-           batch 50 for 10 epochs (steps/s per 100-step window from CUDA
-           events, peak memory, recon loss of the first and last 100
-           steps: the last below 0.6 x the first), resumed for 5 steps;
+           batch 50 for TRAIN_EPOCHS epochs (steps/s per 100-step window
+           from CUDA events, peak memory, recon loss of the first and
+           last 100 steps: the last below 0.6 x the first), resumed for 5
+           steps;
            20 steps each of the ResNet-50 backbone and of bfloat16 (losses
            finite); ``eval`` with the GT detector and ``evaluate_bop`` for
            object 1 with the trained and the initial weights (``train_eval``;
@@ -83,10 +84,13 @@ then drives the port's paths through the entry points a user calls:
   phase 9  detector training on phase 8's split: ``render-pairs`` for
            objects 2-4 (K1 under ``det_pairs``); one CenterNet step at
            full width (ResNet-50, 512 px, B=2) on the card against the
-           CPU in float64 and float32 (phase 8's bars); ``python -m
+           CPU in float64 and float32 (phase 8's bars); 30 CenterNet
+           steps at full width trained twice from one seed, bit-equal
+           (the detector's step runs cuDNN's deterministic algorithms),
+           with their steps/s; ``python -m
            pix2pose_torch.training.detector_train`` at the JAX trainer's
-           defaults (ResNet-50, 512 px, batch 4, Adam 2.5e-4) for 1 000
-           steps (steps/s per 50-step window from CUDA events, the
+           defaults (ResNet-50, 512 px, batch 4, Adam 2.5e-4) for
+           DET_STEPS steps (steps/s per 50-step window from CUDA events, the
            convolutions' TFLOP/s, peak memory, total loss of the first and
            last 100 steps: the last below 0.6 x the first), resumed for 5
            steps; 40 steps of the scene-pool regime (losses finite);
@@ -95,9 +99,9 @@ then drives the port's paths through the entry points a user calls:
            above the initial's), ``--split test`` on the 6 test images,
            ``run-detector`` and the serving detector on the trained
            ``inference.npz`` (detections per test frame beside phase 6's
-           seeded count); RetinaNet for 50 steps (losses finite) and its
-           synthetic mAP; ``scene-gen --num 16`` (files, gt.csv rows,
-           uint8 512 x 512 masks).
+           seeded count); RetinaNet for RETINA_STEPS steps (losses finite)
+           and its synthetic mAP; ``scene-gen --num 16`` (files, gt.csv
+           rows, uint8 512 x 512 masks).
   phase 10 the whole reference flow in one command, ``python -m
            pix2pose_torch rehearsal``, at the JAX rehearsal's full width
            (48 train and 6 test images at 480x640, 4 objects, the paper
@@ -113,13 +117,42 @@ then drives the port's paths through the entry points a user calls:
            fused GAN steps/s and the detector's (CUDA events over 100-step
            windows), peak memory, the mAP and AR tables.
   phase 11 ``python -m pix2pose_torch ab-e2e`` on the card (K1 under
-           ``ab_e2e``): A = A (1 seed, 300 steps, no override, A and B
+           ``ab_e2e``): A = A (1 seed, AB_SAME_STEPS steps, no override,
+           A and B
            trained apart with ``--retrain``), whose delta must be exactly
            0 (float32 training and evaluation repeat on the card),
-           then 2 seeds x 500 steps of ``--b train.compute_dtype=
+           then 2 seeds x AB_STEPS steps of ``--b train.compute_dtype=
            bfloat16``: the rows, mean and min delta and the pass flag,
            failing only on a non-finite AR or an exit code other than 0
            or 1.
+  phase 12 the modules ported last. 12a: ``init_distributed`` (NCCL,
+           world size 1), 20 data-parallel steps of phase 8's generator
+           (object 1, batch 50) against 20 plain ``train`` steps and 20
+           object-parallel steps of the 4 rehearsal objects (batch 32
+           each) against ``train-multi``'s step, bit-equal, steps/s of
+           each (at world size 1 these take BatchNorm's plain path), then
+           one float64 step with the BatchNorms synced over the one-rank
+           NCCL group against the plain step at ``tests/
+           test_torch_parallel.py``'s float64 bars (1e-10). 12b:
+           ``convert-weights`` on phase 8's weights, equal to ``train``'s
+           export array for array. 12c: ``icp-robustness``
+           over its sweep (K1 under ``icp_robustness``), the bounded
+           points inside the JAX tests' envelope, the 45 deg point below
+           50x its initial ADD, and one ICP call with ``pp_weight=0.1`` on
+           the card against the CPU (1e-4). 12d: the cube set through the
+           engine with and without ``max_pnp_points=1024`` (pnp_stride 2):
+           poses within 2 deg / 2% t_z, frac_inlier within 15%, ms per
+           frame of each (the set's build counted under ``cube_dataset``;
+           the engine launches no kernel). 12e:
+           ``RosAdapter`` over in-process stand-ins for the ROS modules
+           (``tests/torch_ros_loopback.py``)
+           on 3 RGB-D frames through phase 6's serving stack: a frame
+           that arrives while busy is dropped, the published images and
+           poses equal ``process`` (K1 under ``ros_adapter``). 12f:
+           ``parity-lmo`` exits 2 without data; on phase 10's tree with
+           its detections and generators as ``inference.npz`` and
+           ``--icp`` every AR is finite and in [0, 1], printed beside
+           phase 10's (K1 under ``parity_lmo``).
   last     eval-icp once more under torch.profiler (device busy share,
            K1's share, costliest device operations), then each entry's
            device operations per call on phase 1's 40 000-face sphere,
@@ -129,15 +162,16 @@ then drives the port's paths through the entry points a user calls:
 
 Each path (phases 2, 3, 4's benchmark, 5, 6, phase 7's evaluators,
 eval-icp CLI and metrics, phase 8's build, pairs and evaluation, phase
-9's pairs, phase 10's rehearsal and phase 11's ab-e2e) runs with every
+9's pairs, phase 10's rehearsal, phase 11's ab-e2e and phase 12's
+icp-robustness, RosAdapter and parity-lmo) runs with every
 kernel launch counter set to 0 just before it and read just after, and
 fails if a kernel it runs was launched no time.
 Launches that compare a kernel with its plain version are not counted.
 TF32 is off for matmuls and cuDNN; the generator's training steps and
-passes run cuDNN's deterministic algorithms (``models/ae.py:
-deterministic_cudnn``). Prints the card's name and power
-limit first, then one JSON line of kernel results, the card line again,
-and last
+passes and the detectors' training steps run cuDNN's deterministic
+algorithms (``models/ae.py:deterministic_cudnn``). Prints the card's
+name and power limit first; after the paths the wall of each phase,
+then one JSON line of kernel results, the card line again, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line,
 when anything fails or no CUDA device is present.
 """
@@ -146,6 +180,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1280,12 +1315,20 @@ def phase7b_cli(dev, root):
 # (200 images' 750 steps left the generator's error map above every
 # outlier threshold on the test images: no pose)
 TRAIN_IMAGES = 240
-TRAIN_EPOCHS = 10
+# 7 of those 10 epochs (~620 steps; 10 until the detector's step became
+# deterministic and phase 12 came, cut to keep the script inside its time
+# limit)
+TRAIN_EPOCHS = 7
 # the card-vs-CPU step's lr (tests/test_torch_gan.py: float32 case)
 CMP_LR = 5e-6
 # the full-width run passes when its last 100 steps' mean recon loss is
 # below this share of its first 100 steps'
 RECON_RATIO = 0.6
+
+
+def train_export_path(root):
+    """Where phase 8 keeps the ``inference.npz`` that ``train`` exported."""
+    return os.path.join(root, "train_export.npz")
 
 
 class StepRecorder:
@@ -1543,6 +1586,8 @@ def phase8_training(dev, root):
                              f"expected {len(recon) + 5}")
     log(f"phase 8 train CLI resumed from epoch {TRAIN_EPOCHS}: 5 more "
         f"steps, state at step {state.step}")
+    # what ``train`` exported last; phase 12 converts the newest epoch again
+    shutil.copy(os.path.join(wdir, "inference.npz"), train_export_path(root))
 
     other = os.path.join(root, "weights_other")
     short_run("ResNet-50 backbone (trunk decay)", ds, back_dir,
@@ -1602,8 +1647,9 @@ def phase8_training(dev, root):
 # Phase 9 trains the detector the port serves at the JAX trainer's defaults
 # (ResNet-50 trunk, head_dim 128, 512 px, batch 4, k_obj 8, Adam 2.5e-4
 # with a 200-step warmup) for DET_STEPS of its 20 000 steps (1 500 until
-# phases 10-11 came, cut to keep the script inside its time limit).
-DET_STEPS = 1000
+# phases 10-11 came, 1 000 until its step became deterministic and phase
+# 12 came; each cut keeps the script inside its time limit).
+DET_STEPS = 600
 # its last 100 steps' mean total loss must be below this share of its
 # first 100 steps'
 DET_LOSS_RATIO = 0.6
@@ -1611,7 +1657,7 @@ DET_LOSS_RATIO = 0.6
 # the trainer's initial weights' (twice the JAX package's floor for 500
 # tiny-trunk steps at 192 px, tests/test_training.py)
 DET_MAP50 = 0.3
-RETINA_STEPS = 50
+RETINA_STEPS = 30
 # the convs a train-mode BatchNorm follows (every trunk conv and ``fuse``):
 # their biases have a zero gradient in exact arithmetic, float32 noise
 _DET_BIAS_BEFORE_BN = ("trunk.", "fuse")
@@ -1712,6 +1758,53 @@ def det_step_card_vs_cpu(dev, ds, back_dir):
                                  f"1e-6 {n_ok / n_all:.6f}")
 
 
+# the repeat check: CenterNet steps trained twice from one seed
+DET_REPEAT_STEPS = 30
+
+
+def det_repeat_check(dev, ds, back_dir):
+    """``DET_REPEAT_STEPS`` CenterNet steps at the trainer's full width
+    (ResNet-50, 512 px, batch 4, fresh composed scenes each step, the
+    warmup lr) trained twice from one seed: every weight and BatchNorm
+    statistic must be bit-equal (the step runs under cuDNN's
+    deterministic algorithms). Logs the steps/s of both runs after the
+    first 10 steps (CUDA events)."""
+    import torch
+
+    from pix2pose_torch.models import CenterNetDetector
+    from pix2pose_torch.training.detector_data import make_detector_batch
+    from pix2pose_torch.training.detector_train import (
+        WARMUP, create_detector_state, load_store, make_detector_step)
+
+    store = load_store(ds, back_dir, dev)
+    outs, rates = [], []
+    for _ in range(2):
+        model = CenterNetDetector(store.num_classes)
+        state = create_detector_state(model, SEED, dev)
+        step = make_detector_step(model)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for it in range(DET_REPEAT_STEPS):
+            if it == 10:
+                a.record()
+            step(state, make_detector_batch(store, gen, 4, 512),
+                 2.5e-4 * min(1.0, (it + 1) / WARMUP))
+        b.record()
+        torch.cuda.synchronize()
+        rates.append((DET_REPEAT_STEPS - 10) * 1e3 / a.elapsed_time(b))
+        outs.append({k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()})
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    log(f"phase 9 repeat: {DET_REPEAT_STEPS} CenterNet steps (ResNet-50, "
+        f"512 px, batch 4) trained twice from seed {SEED}: "
+        f"{len(outs[0]) - len(differ)} of {len(outs[0])} tensors bit-equal;"
+        f" steps/s after the first 10 (CUDA events) "
+        f"{[round(r, 2) for r in rates]}; on {card_line()}")
+    if differ:
+        raise AssertionError(f"phase 9: the detector's training does not "
+                             f"repeat: {differ[:5]}")
+
+
 def eval_detector(cli, args, label):
     """``eval-detector`` through the CLI; logs and returns its result."""
     t0 = time.perf_counter()
@@ -1773,6 +1866,7 @@ def phase9_detector_training(dev, root):
         raise AssertionError(f"phase 9: pairs {n_pairs}, K1 {launches}")
 
     det_step_card_vs_cpu(dev, ds, back_dir)
+    det_repeat_check(dev, ds, back_dir)
 
     # the full-width run through the trainer's CLI, then resumed; its
     # memory is the peak above what the earlier phases still hold
@@ -1899,9 +1993,10 @@ def phase9_detector_training(dev, root):
 # object, CenterNet (ResNet-50) at 384 px, batch 8, k_obj 8, score
 # threshold 0.2, max_det 4, outlier thresholds (0.1, 0.2, 0.3), ICP on.
 # Only the step counts are cut from the JAX defaults of 6 000 and 3 000,
-# so that the whole script stays inside its time limit.
-REHEARSAL_GAN_STEPS = 600
-REHEARSAL_DET_STEPS = 1000
+# so that the whole script stays inside its time limit (600 and 1 000
+# until the detector's step became deterministic and phase 12 came).
+REHEARSAL_GAN_STEPS = 300
+REHEARSAL_DET_STEPS = 500
 # the test split's box mAP50 must reach this
 REHEARSAL_TEST_MAP50 = 0.3
 # the two detector transports' AR may differ by this much (the JAX
@@ -1990,6 +2085,7 @@ def phase10_rehearsal(dev, root):
                 raise AssertionError(f"phase 10: AR {leg} {tag} {ar}")
     for o, rec in summary["AR_rgb_centernet_per_object"].items():
         log(f"phase 10 AR rgb centernet object {o}: {rec}")
+    RESULTS["rehearsal_ar"] = ars
     gaps = {leg: abs(ars[leg, "centernet"] - ars[leg, "precomputed"])
             for leg in ("rgb", "rgbd")}
     log(f"phase 10: AR gap between the transports {gaps}")
@@ -2009,10 +2105,12 @@ def phase10_rehearsal(dev, root):
 # (--retrain) and checks that float32 training and evaluation repeat there
 # (its delta must be exactly 0); the bfloat16 run is a
 # measurement, not a gate: only a non-finite AR or an exit code other
-# than 0 (pass) or 1 (fail) fails the phase.
-AB_SAME_STEPS = 300
+# than 0 (pass) or 1 (fail) fails the phase. (300 and 500 steps until
+# phase 12 came; the bfloat16 run 300 until the synced BatchNorm check
+# came.)
+AB_SAME_STEPS = 150
 AB_SEEDS = 2
-AB_STEPS = 500
+AB_STEPS = 200
 
 
 def ab_e2e_cli(cli, args):
@@ -2074,6 +2172,492 @@ def phase11_ab_e2e(dev, root):
     return launches
 
 
+# Phase 12 drives the modules the port took last: multi-process training
+# on torch.distributed (world size 1 here: NCCL refuses two ranks on one
+# device), convert-weights, icp-robustness, correspondence compaction, the
+# ROS transport and parity-lmo.
+PAR_STEPS = 20
+# icp-robustness: each bounded sweep point's median final ADD (mm) must lie
+# below the envelope tests/test_icp_robustness.py asserts for the JAX
+# refiner; (25, 60) has no bar there and (45, 80) has its own
+ICP_ENVELOPE = {(5.0, 10.0, 0.0, 0.0, 1.0): 1.0,
+                (10.0, 20.0, 0.0, 0.0, 1.0): 1.0,
+                (10.0, 20.0, 2.0, 0.0, 1.0): 2.0,
+                (10.0, 20.0, 5.0, 0.0, 1.0): 4.0,
+                (10.0, 20.0, 0.0, 0.1, 1.0): 3.0,
+                (10.0, 20.0, 0.0, 0.3, 1.0): 5.0,
+                (10.0, 20.0, 2.0, 0.1, 0.6): 5.0,
+                (15.0, 40.0, 0.0, 0.0, 1.0): 5.0}
+COMPACT_POINTS = 1024
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _gan_runs(ds, back_dir, objs, cfg, dev):
+    """Fresh runs of ``objs`` of phase 8's split, as ``train`` /
+    ``train-multi`` start them (initialization seeded by the object, data
+    stream by 1234 + the object)."""
+    from pix2pose_torch.training.data import PatchStore
+    from pix2pose_torch.training.multi import new_object_run
+    from pix2pose_torch.utils.symmetry import training_sym_pool
+
+    runs = []
+    for o in objs:
+        d = os.path.join(ds.dir, "train_xyz", f"{o:02d}")
+        with open(os.path.join(d, "meta.json")) as f:
+            lock = json.load(f).get("rotation_lock", False)
+        runs.append(new_object_run(
+            o, PatchStore.load(d, back_dir, device=dev),
+            training_sym_pool(ds, o), not lock, cfg, 1234 + o, dev))
+    return runs
+
+
+def _timed_steps(step, n: int, warm: int = 5) -> float:
+    """Steps/s of ``step(it)`` over ``n`` steps after ``warm`` (CUDA
+    events)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for it in range(n):
+        if it == warm:
+            a.record()
+        step(it)
+    b.record()
+    torch.cuda.synchronize()
+    return (n - warm) * 1e3 / a.elapsed_time(b)
+
+
+def _same_weights(runs_a, runs_b) -> list:
+    """Names of the tensors (networks and optimizer moments) that differ
+    between two lists of runs."""
+    import torch
+
+    bad = []
+    for ra, rb in zip(runs_a, runs_b):
+        for net in ("gen", "disc"):
+            sa = getattr(ra.state, net).state_dict()
+            sb = getattr(rb.state, net).state_dict()
+            bad += [f"{ra.obj_id}.{net}.{k}" for k in sa
+                    if not torch.equal(sa[k], sb[k])]
+            oa = getattr(ra.state, f"{net}_opt").state_dict()["state"]
+            ob = getattr(rb.state, f"{net}_opt").state_dict()["state"]
+            bad += [f"{ra.obj_id}.{net}_opt.{i}" for i in oa
+                    if not all(torch.equal(oa[i][k], ob[i][k])
+                               for k in ("exp_avg", "exp_avg_sq"))]
+    return bad
+
+
+def phase12a_distributed(dev, root):
+    """``init_distributed`` with NCCL at world size 1, then
+    ``PAR_STEPS`` dp steps of the paper generator at phase 8's
+    configuration (object 1, batch 50, its store and data seed) against
+    as many plain ``train`` steps, and ``PAR_STEPS`` obj-parallel steps
+    over the 4 rehearsal objects at batch 32 against ``train-multi``'s
+    step: weights, BatchNorm statistics and Adam moments bit-equal;
+    steps/s of each."""
+    import torch
+    import torch.distributed as dist
+
+    from pix2pose_torch.config import TrainConfig
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.parallel import (init_distributed, make_mesh,
+                                         make_parallel_train_step)
+    from pix2pose_torch.training.multi import make_multi_step
+
+    card = card_line()
+    ds = BopDataset(root, "rehearsal_train", train=True)
+    back_dir = os.path.join(root, "backs")
+    t0 = time.perf_counter()
+    rank_world = init_distributed(f"tcp://localhost:{_free_port()}", 1, 0,
+                                  device=dev)
+    mesh = make_mesh(device=dev)
+    log(f"phase 12a: init_distributed -> (rank, world) {rank_world}, "
+        f"backend {dist.get_backend()}, mesh {mesh.shape} "
+        f"{mesh.axis_names}, in {time.perf_counter() - t0:.2f} s")
+    try:
+        for label, objs, bsz, parallel in (
+                ("dp", [1], 50, False),
+                ("obj-parallel", list(ds.model_ids), 32, True)):
+            cfg = TrainConfig(batch_size=bsz)
+            plain_runs = _gan_runs(ds, back_dir, objs, cfg, dev)
+            par_runs = _gan_runs(ds, back_dir, objs, cfg, dev)
+            plain = make_multi_step(cfg)
+            if parallel:
+                par = make_parallel_train_step(cfg, mesh, True)
+                mine = par_runs[mesh.axis_slice(len(objs), "obj")]
+            else:
+                par = make_multi_step(cfg, train_step=make_parallel_train_step(
+                    cfg, mesh, False))
+                mine = par_runs
+            lr = cfg.lr_schedule[0]
+            r_plain = _timed_steps(lambda it: plain(plain_runs, it, lr),
+                                   PAR_STEPS)
+            metrics = []
+            r_par = _timed_steps(lambda it: metrics.append(
+                par(mine, it, lr)), PAR_STEPS)
+            bad = _same_weights(plain_runs, par_runs)
+            recon = metrics[-1]["recon_loss"].reshape(-1).tolist()
+            log(f"phase 12a {label}: {len(objs)} object(s) x batch {bsz}, "
+                f"{PAR_STEPS} steps: parallel {r_par:.3f} steps/s, plain "
+                f"{r_plain:.3f} steps/s ({100 * (1 - r_par / r_plain):.1f}% "
+                f"slower); last recon {[round(v, 5) for v in recon]}; "
+                f"{'bit-equal' if not bad else 'DIFFERENT'}; on {card}")
+            if bad:
+                raise AssertionError(f"phase 12a {label}: differ {bad[:5]}")
+            del plain_runs, par_runs
+        _synced_bn_step(ds, back_dir, dev, mesh.groups["dp"])
+    finally:
+        dist.destroy_process_group()
+
+
+def _synced_bn_step(ds, back_dir, dev, group):
+    """One step of phase 8's generator (object 1, batch 50, the networks
+    and the input in float64, lr 5e-6) with every train-mode BatchNorm
+    synced over ``group`` (the one-rank NCCL dp group: the differentiable
+    all-reduce of the sum and centred sum of squares, ``models/
+    batchnorm.py:_synced_forward``) against the plain step from the same
+    state and draws, at ``tests/test_torch_parallel.py``'s float64 bars:
+    losses within 1e-10 relative, parameters and BatchNorm running
+    statistics within 1e-10. (In float32 the two differ by rounding, and
+    LeakyReLU inputs within rounding of 0 take the other branch, which
+    that file's float32 bars allow for at its batch of 4 only.) The dp
+    steps above take the plain path at world size 1, so this is the
+    synced path's run on the card."""
+    import torch
+
+    from pix2pose_torch.config import TrainConfig
+    from pix2pose_torch.models.batchnorm import synced_over
+    from pix2pose_torch.training.data import make_batch
+    from pix2pose_torch.training.gan import draw_labels, make_train_step
+
+    cfg = TrainConfig(batch_size=50)
+    lr = 5e-6
+    raw = make_train_step(cfg)
+
+    def synced(state, batch, sym_pool, lr, labels):
+        with synced_over(group, state.gen, state.disc):
+            return raw(state, batch, sym_pool, lr, labels)
+
+    states, metrics = {}, {}
+    for name, step in (("plain", raw), ("synced", synced)):
+        run = _gan_runs(ds, back_dir, [1], cfg, dev)[0]
+        run.state.gen.double()
+        run.state.disc.double()
+        batch = make_batch(run.store, run.rng, 0, cfg.batch_size,
+                           full_rotation=run.full_rotation)
+        labels = draw_labels(run.rng, cfg.batch_size, cfg.label_flipping)
+        metrics[name] = step(run.state, {**batch, "src": batch["src"]
+                                         .double()}, run.sym_pool, lr,
+                             labels)
+        states[name] = run.state
+    worst = {k: abs(float(metrics["synced"][k]) - float(v))
+             / max(abs(float(v)), 1e-30) for k, v in metrics["plain"].items()}
+    bad = [k for k, v in worst.items() if v > 1e-10]
+    d_max = 0.0
+    for net in ("gen", "disc"):
+        pa = getattr(states["plain"], net).state_dict()
+        pb = getattr(states["synced"], net).state_dict()
+        for k, v in pa.items():
+            d = float((pb[k].double() - v.double()).abs().max())
+            d_max = max(d_max, d)
+            if d > 1e-10:
+                bad.append(f"{net}.{k}")
+    log(f"phase 12a synced BatchNorm: one float64 step of object 1 at "
+        f"batch 50, lr {lr}, with the BatchNorms over the one-rank group "
+        f"against the plain step: loss relative differences "
+        f"{ {k: f'{v:.2e}' for k, v in worst.items()} }, parameters and "
+        f"running statistics within {d_max:.2e}; "
+        f"{'within the bars' if not bad else 'OUTSIDE ' + str(bad[:5])}")
+    if bad:
+        raise AssertionError(f"phase 12a synced BatchNorm: {bad[:5]}")
+
+
+def phase12b_convert(dev, root):
+    """``python -m pix2pose_torch convert-weights`` on phase 8's weight
+    directory: the ``inference.npz`` it writes from the newest epoch must
+    equal, array for array, the one ``train`` exported."""
+    import numpy as np
+
+    from pix2pose_torch.__main__ import main as cli
+
+    wdir = os.path.join(root, "rehearsal_train", "pix2pose_weights", "01")
+    t0 = time.perf_counter()
+    cli(["convert-weights", wdir, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    with np.load(os.path.join(wdir, "inference.npz")) as a, \
+            np.load(train_export_path(root)) as b:
+        keys = sorted(a.files)
+        bad = [k for k in keys if k not in b.files
+               or not np.array_equal(a[k], b[k])]
+        bad += sorted(set(b.files) - set(keys))
+    log(f"phase 12b convert-weights: {len(keys)} arrays in {wall:.2f} s, "
+        f"{'all equal to train' if not bad else 'DIFFERENT'}'s export")
+    if bad:
+        raise AssertionError(f"phase 12b: arrays differ {bad[:5]}")
+
+
+def phase12c_icp_robustness(dev):
+    """``python -m pix2pose_torch icp-robustness`` over the full sweep
+    (10 points x 3 seeds at 240x320; K1 renders the sensor frames and the
+    refiner's rounds): the table, the bounded points' medians inside
+    ``ICP_ENVELOPE``, the 45 deg / 80 mm point below 50x its initial ADD
+    on every seed; then one ICP call with ``pp_weight=0.1`` on the 5 deg /
+    10 mm point's clouds on the card against the CPU (R and t within
+    1e-4). Returns the K1 launches."""
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.ops.icp import icp_point_to_plane
+    from pix2pose_torch.tools.icp_robustness import SWEEP
+    from torch_icp_clouds import case_clouds
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = cli(["icp-robustness", "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = read_counts()["binned_zbuffer"]
+    seeds = [[(round(i, 3), round(f, 3)) for i, f in r["seeds"]]
+             for r in rows]
+    log(f"phase 12c icp-robustness: {len(rows)} sweep points x 3 seeds in "
+        f"{wall:.1f} s, K1 launches {launches}; per seed (initial, final) "
+        f"ADD: {seeds}")
+    for r in rows:
+        bar = ICP_ENVELOPE.get(tuple(r["case"]))
+        if bar is not None and not r["add_final_med"] < bar:
+            raise AssertionError(f"phase 12c: {r['case']} median final ADD "
+                                 f"{r['add_final_med']} >= {bar}")
+        if r["case"][0] == 45.0 and any(f >= 50.0 * i for i, f in r["seeds"]):
+            raise AssertionError(f"phase 12c: 45 deg diverged {r['seeds']}")
+    if launches == 0:
+        raise AssertionError("phase 12c: icp-robustness never launched K1")
+    src, sv, tgt, tn, tv = case_clouds(SWEEP[0], 0, device=dev)
+    (R_c, t_c, ok), (R_h, t_h, _) = [
+        (res.R.cpu(), res.t.cpu(), bool(res.ok)) for res in (
+            icp_point_to_plane(*(x.to(d) for x in (src, tgt, tn)),
+                               src_valid=sv.to(d), tgt_valid=tv.to(d),
+                               pp_weight=0.1)
+            for d in (dev, torch.device("cpu")))]
+    d_r = float((R_c - R_h).abs().max())
+    d_t = float((t_c - t_h).abs().max())
+    log(f"phase 12c: ICP with pp_weight=0.1 on the 5 deg / 10 mm clouds "
+        f"({int(sv.sum())} source, {int(tv.sum())} target points): card vs "
+        f"CPU max |dR| {d_r:.2e}, |dt| {d_t:.2e} m; ok {ok}")
+    if not (d_r <= 1e-4 and d_t <= 1e-4 and ok):
+        raise AssertionError(f"phase 12c: pp_weight card vs CPU {d_r}, {d_t}")
+    return launches
+
+
+def phase12d_compaction(dev):
+    """Phase 7a's oracle cube set (1 scene x 3 images, 480x640) through the
+    engine with the GT detector's boxes and instance masks (phase 7a's
+    evaluator uses both) at pnp_stride 2 (4096 grid points) without and
+    with
+    ``max_pnp_points=COMPACT_POINTS``: every pose within 2 deg and 2% of
+    t_z of GT, the compacted frac_inlier within 15% of the full grid's
+    (``tests/test_engine.py``'s bar); ms per frame of both (host clock,
+    synchronized, median of 3 passes after one). Returns the K1 launches
+    of the set's build (the engine itself launches no kernel)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.config import EvalConfig
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.inference.detector import GtDetector
+    from pix2pose_torch.inference.engine import Pix2PoseEstimator
+    from pix2pose_torch.utils.synthetic import (OracleGenerator,
+                                                build_cube_dataset)
+
+    with tempfile.TemporaryDirectory() as root:
+        reset_counts()
+        entries = build_cube_dataset(root, n_scenes=1, ims_per_scene=3,
+                                     device=dev)
+        launches = read_counts()["binned_zbuffer"]
+        ds = BopDataset(root, "cubes", train=False)
+        cam = ds.scene_camera(0)
+        frames = []
+        for _, i, R, t in entries:
+            rgb = ds.load_rgb(0, i)
+            det = GtDetector(ds).detect(0, i, rgb)[0]
+            frames.append((rgb, np.asarray(det.bbox)[None], det.mask[None],
+                           cam[i]["cam_K"], R, t))
+    base = EvalConfig(outlier_th=(0.1, 0.2, 0.3), inlier_th=0.1).estimator(0)
+    op = np.array([40, 40, 40, 0, 0, 0], np.float32)
+    out, ms = {}, {}
+    for cap in (None, COMPACT_POINTS):
+        est = Pix2PoseEstimator(OracleGenerator(), dataclasses.replace(
+            base, pnp_stride=2, max_pnp_points=cap), device=dev)
+
+        def run():
+            res = [est(None, rgb, box, np.ones(1, bool), k, op,
+                       torch.Generator(device=dev).manual_seed(i),
+                       det_masks=mask)
+                   for i, (rgb, box, mask, k, _, _) in enumerate(frames)]
+            torch.cuda.synchronize()
+            return res
+
+        run()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[cap] = run()
+            walls.append((time.perf_counter() - t0) * 1e3 / len(frames))
+        ms[cap] = float(np.median(walls))
+    errs = {}
+    for cap, res in out.items():
+        errs[cap] = []
+        for r, (_, _, _, _, R_gt, t_gt) in zip(res, frames):
+            e_r = rot_err_deg(r.R[0].cpu().numpy(), R_gt)
+            e_t = float(np.linalg.norm(r.t[0].cpu().numpy() - t_gt))
+            errs[cap].append((round(e_r, 3), round(e_t, 3),
+                              round(float(r.frac_inlier[0]), 4)))
+            if not (bool(r.valid[0]) and e_r < 2.0 and e_t < 0.02 * t_gt[2]):
+                raise AssertionError(f"phase 12d cap {cap}: {e_r} deg, "
+                                     f"{e_t} mm")
+    log(f"phase 12d compaction: (deg, mm, frac_inlier) per frame, full grid "
+        f"{errs[None]}, max_pnp_points={COMPACT_POINTS} "
+        f"{errs[COMPACT_POINTS]}; engine ms per frame {ms[None]:.1f} full, "
+        f"{ms[COMPACT_POINTS]:.1f} compacted; K1 launches {launches} (the "
+        f"cube set's build)")
+    for (_, _, f_full), (_, _, f_comp) in zip(errs[None],
+                                              errs[COMPACT_POINTS]):
+        if abs(f_comp - f_full) >= 0.15 * max(f_full, 1e-6):
+            raise AssertionError(f"phase 12d: frac_inlier {f_full} -> "
+                                 f"{f_comp}")
+    return launches
+
+
+def phase12e_ros(dev, root):
+    """``RosAdapter`` over the loopback ROS modules on 3 RGB-D test frames
+    through phase 6's serving stack (``create_server --icp``: 4 ResNet-50
+    generators, the seeded CenterNet): a frame that arrives while one is
+    processed is dropped, the subscriber comes back after each frame, and
+    the published images and each frame's poses equal ``process`` on the
+    same frames from the same generator state. Returns the K1 launches."""
+    import numpy as np
+
+    from pix2pose_torch.data.bop import BopDataset
+    from pix2pose_torch.serving import RosAdapter
+    from pix2pose_torch.serving.__main__ import create_server
+    from torch_ros_loopback import LoopbackRos
+
+    server = create_server([os.path.join(root, "ros_config.json"), root,
+                            "rehearsal", "--icp", "--port", "0", "--device",
+                            str(dev)])
+    svc = server.frontend.service
+    server.close()
+    ds = BopDataset(root, "rehearsal", train=False)
+    frames = [(ds.load_rgb(0, i), (ds.load_depth(0, i) * 1000.0)
+               .astype(np.float32)) for i in range(3)]
+    cfg = svc.cfg
+    script = [m for rgb, d in frames for m in ((cfg.depth_topic, d),
+                                               (cfg.rgb_topic, rgb))]
+    bus, seen = LoopbackRos(script), []
+    process = svc.process
+    gen_state, count = svc._gen.get_state(), svc.frame_count
+
+    def busy(rgb, depth):
+        if not seen:
+            bus.deliver(cfg.rgb_topic, frames[1][0])
+        seen.append(process(rgb, depth))
+        return seen[-1]
+
+    svc.process = busy
+    reset_counts()
+    t0 = time.perf_counter()
+    with bus.installed():
+        RosAdapter(svc).spin()
+    wall = time.perf_counter() - t0
+    launches = read_counts()["binned_zbuffer"]
+    svc.process = process
+    svc._gen.set_state(gen_state)
+    svc.frame_count = count
+    ref = [svc.process(rgb, d / 1000.0) for rgb, d in frames]
+    pub_det = bus.published[RosAdapter.DETECTION_TOPIC]
+    pub_pose = bus.published[RosAdapter.POSE_TOPIC]
+    same = (len(pub_det) == len(pub_pose) == len(ref) and all(
+        np.array_equal(a, r.detection_image) and np.array_equal(
+            b, r.pose_image) and len(s.poses) == len(r.poses) and all(
+            np.array_equal(p.R, q.R) and np.array_equal(p.t, q.t)
+            for p, q in zip(s.poses, r.poses))
+        for a, b, s, r in zip(pub_det, pub_pose, seen, ref)))
+    log(f"phase 12e RosAdapter: {len(frames)} RGB-D frames in {wall:.2f} s, "
+        f"poses per frame {[len(s.poses) for s in seen]}, dropped "
+        f"{bus.dropped}, subscriptions {bus.subscribe_log}, published "
+        f"{ {k: len(v) for k, v in bus.published.items()} }, equal to "
+        f"process: {same}; K1 launches {launches}")
+    if not same or bus.dropped != {cfg.rgb_topic: 1} or \
+            len(bus.subscribers[cfg.rgb_topic]) != 1 or launches == 0:
+        raise AssertionError("phase 12e: RosAdapter")
+    return launches
+
+
+def phase12f_parity(dev, root):
+    """``python -m pix2pose_torch parity-lmo``: on a root without the
+    dataset it exits 2; on phase 10's rehearsal tree (its test split, its
+    detections and its 4 trained generators written as the port's
+    ``<obj>/inference.npz`` layout under ``--weights``) with ``--icp`` it
+    returns every AR finite and in [0, 1], printed beside phase 10's.
+    Returns the K1 launches."""
+    import math
+
+    import torch
+
+    from pix2pose_torch.__main__ import main as cli
+    from pix2pose_torch.utils.checkpoint import export_inference
+    from pix2pose_torch.utils.convert import state_dict_to_flax
+
+    try:
+        cli(["parity-lmo", "--bop-root", os.path.join(root, "no_bop"),
+             "--device", str(dev)])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    if code != 2:
+        raise AssertionError(f"phase 12f: gated run exited {code}")
+    tree = os.path.join(root, "rehearsal_e2e")
+    out = os.path.join(tree, "out")
+    weights = torch.load(os.path.join(out, "weights.pt"), map_location="cpu")
+    wroot = os.path.join(root, "parity_weights")
+    for o, sd in weights["gen"].items():
+        export_inference(os.path.join(wroot, f"{int(o):02d}"),
+                         state_dict_to_flax(sd))
+    cfg = os.path.join(root, "cfg_parity.json")
+    with open(cfg, "w") as f:   # the rehearsal's evaluation settings
+        json.dump({"backbone": "paper", "score_type": 2, "task_type": 2,
+                   "cand_factor": 1.0, "outlier_th": [0.1, 0.2, 0.3],
+                   "inlier_th": 0.3}, f)
+    reset_counts()
+    t0 = time.perf_counter()
+    report = cli(["parity-lmo", "--bop-root", tree, "--dataset",
+                  "rehearsal", "--weights", wroot, "--cfg", cfg,
+                  "--detections", os.path.join(out, "detections.json"),
+                  "--icp", "--out-dir", os.path.join(root, "parity_out"),
+                  "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    launches = read_counts()["binned_zbuffer"]
+    ars = {k: v for k, v in report.items() if k.startswith("AR")}
+    ref = RESULTS.get("rehearsal_ar", {})
+    log(f"phase 12f parity-lmo (gated: exit 2): on phase 10's tree with "
+        f"--icp in {wall:.1f} s, {report['n_results']} RGB rows; ARs {ars}"
+        f"; phase 10's precomputed-detection ARs RGB "
+        f"{ref.get(('rgb', 'precomputed'))}, RGB-D "
+        f"{ref.get(('rgbd', 'precomputed'))} (max_det 4 there, 8 here); K1 "
+        f"launches {launches}")
+    if len(ars) != 8 or not all(math.isfinite(v) and 0.0 <= v <= 1.0
+                                for v in ars.values()) or launches == 0:
+        raise AssertionError(f"phase 12f: {report}")
+    return launches
+
+
 def eval_icp_device_share(dev, root):
     """Phase 7b's eval-icp once more under torch.profiler (CUDA activity
     only): the device time of all its operations and of K1's three
@@ -2091,15 +2675,16 @@ def eval_icp_device_share(dev, root):
         cli(["eval-icp", cfg, "rehearsal", "--device", str(dev)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    averages = prof.key_averages()   # aggregating the trace takes ~1 min
     ops = {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_time_total > 0:
             ops[e.key[:60]] = ops.get(e.key[:60], 0.0) \
                 + e.device_time_total / 1e6
     busy = sum(ops.values())
     # K1's kernels by their names, parsed as device_breakdown parses them
     # (a key may start "void (anonymous namespace)::")
-    k1 = sum(e.device_time_total / 1e6 for e in prof.key_averages()
+    k1 = sum(e.device_time_total / 1e6 for e in averages
              if e.key.split("::")[-1].split("(")[0].strip()
              in ("build_kernel", "binned_raster", "finalize_kernel"))
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
@@ -2121,6 +2706,8 @@ def main() -> int:
             "False); this check runs on a GPU only")
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # the checks' stand-ins (ROS modules, ICP clouds) live with the tests
+    sys.path.append(str(Path(__file__).resolve().parent / "tests"))
     from pix2pose_torch.ops import rasterizer_cuda
 
     dev = torch.device("cuda:0")
@@ -2140,25 +2727,45 @@ def main() -> int:
         if "ptxas" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    rec_k1, in_k1 = phase1_kernel_vs_plain(dev)
-    by_path = {"serve_oracle": {"binned_zbuffer": phase2_oracle(dev)},
-               "serve_ae": {"binned_zbuffer": phase3_full_width(dev)}}
-    rec_k2, in_k2, by_path["bench"] = phase4_exhaustive(dev)
-    by_path["datagen"], by_path["pairs_40k"] = phase5_datagen(dev)
+    walls = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            walls[label] = round(time.perf_counter() - t, 1)
+
+    rec_k1, in_k1 = timed("1", phase1_kernel_vs_plain, dev)
+    by_path = {"serve_oracle": {"binned_zbuffer": timed("2", phase2_oracle,
+                                                        dev)},
+               "serve_ae": {"binned_zbuffer": timed("3", phase3_full_width,
+                                                    dev)}}
+    rec_k2, in_k2, by_path["bench"] = timed("4", phase4_exhaustive, dev)
+    by_path["datagen"], by_path["pairs_40k"] = timed("5", phase5_datagen,
+                                                     dev)
     with tempfile.TemporaryDirectory() as root:
-        by_path["serve_cli"] = {"binned_zbuffer": phase6_serving_cli(dev,
-                                                                     root)}
-        cube_set, oracle, metrics_a = phase7a_oracle(dev)
-        icp, metrics_b = phase7b_cli(dev, root)
-        train_set, train_pairs, train_eval = phase8_training(dev, root)
-        det_pairs = phase9_detector_training(dev, root)
-        rehearsal = phase10_rehearsal(dev, root)
-        ab = phase11_ab_e2e(dev, root)
+        by_path["serve_cli"] = {"binned_zbuffer": timed(
+            "6", phase6_serving_cli, dev, root)}
+        cube_set, oracle, metrics_a = timed("7a", phase7a_oracle, dev)
+        icp, metrics_b = timed("7b", phase7b_cli, dev, root)
+        train_set, train_pairs, train_eval = timed("8", phase8_training,
+                                                   dev, root)
+        det_pairs = timed("9", phase9_detector_training, dev, root)
+        rehearsal = timed("10", phase10_rehearsal, dev, root)
+        ab = timed("11", phase11_ab_e2e, dev, root)
+        timed("12a", phase12a_distributed, dev, root)
+        timed("12b", phase12b_convert, dev, root)
+        icp_rob = timed("12c", phase12c_icp_robustness, dev)
+        cube_set_12d = timed("12d", phase12d_compaction, dev)
+        ros = timed("12e", phase12e_ros, dev, root)
+        parity = timed("12f", phase12f_parity, dev, root)
         # Last, after every path: a torch.profiler session leaves the
         # process's later CUDA launches slower, which would show in the
         # host-bound paths.
-        eval_icp_device_share(dev, root)
-    by_path["cube_dataset"] = {"binned_zbuffer": cube_set}
+        timed("profile", eval_icp_device_share, dev, root)
+    log(f"walls per phase (s): {walls}; total {sum(walls.values()):.1f}")
+    by_path["cube_dataset"] = {"binned_zbuffer": cube_set + cube_set_12d}
     by_path["eval_oracle"] = {"binned_zbuffer": oracle}
     by_path["eval_icp"] = {"binned_zbuffer": icp}
     by_path["metrics"] = {"binned_zbuffer": metrics_a + metrics_b}
@@ -2168,6 +2775,9 @@ def main() -> int:
     by_path["det_pairs"] = {"binned_zbuffer": det_pairs}
     by_path["rehearsal"] = {"binned_zbuffer": rehearsal}
     by_path["ab_e2e"] = {"binned_zbuffer": ab}
+    by_path["icp_robustness"] = {"binned_zbuffer": icp_rob}
+    by_path["ros_adapter"] = {"binned_zbuffer": ros}
+    by_path["parity_lmo"] = {"binned_zbuffer": parity}
     for label, core, rec, (packed, bounds) in (
             ("phase 1 sphere", rasterizer_cuda._binned_core_cuda, rec_k1,
              in_k1),

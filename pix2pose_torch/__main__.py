@@ -1,5 +1,5 @@
 """Unified CLI: ``python -m pix2pose_torch <command> [args...]`` (port of
-:mod:`pix2pose_tpu.__main__`, listing the commands the port has).
+:mod:`pix2pose_tpu.__main__`, with every command it lists).
 
 Each subcommand imports its module lazily, so ``--help`` is instant.
 """
@@ -23,15 +23,22 @@ _COMMANDS = {
     "eval-icp": ("pix2pose_torch.eval.bop_eval_icp",
                  "tools/5_evaluation_bop_icp3d.py"),
     "serve": ("pix2pose_torch.serving.__main__",
-              "ros_kinetic/ros_pix2pose.py (TCP transport here)"),
+              "ros_kinetic/ros_pix2pose.py (TCP transport here; "
+              "RosAdapter for ROS)"),
     "run-detector": ("pix2pose_torch.tools.run_detector",
                      "tools/mask_rcnn_util.py inference path"),
     "eval-detector": ("pix2pose_torch.tools.eval_detector",
                       "(no reference equivalent: in-repo mAP harness)"),
+    "icp-robustness": ("pix2pose_torch.tools.icp_robustness",
+                       "(no reference equivalent: ICP oracle harness)"),
+    "parity-lmo": ("pix2pose_torch.tools.parity_lmo",
+                   "README.md BOP'20 result tables"),
     "train": ("pix2pose_torch.training.train",
               "tools/3_train_pix2pose.py"),
     "train-multi": ("pix2pose_torch.training.multi",
                     "train.sh (sequential per-object jobs, fused here)"),
+    "convert-weights": ("pix2pose_torch.tools.convert_weights",
+                        "tools/4_convert_weights_inference.py"),
     "rehearsal": ("pix2pose_torch.tools.rehearsal",
                   "full reference flow README.md:96-115 on synthetic "
                   "BOP data"),

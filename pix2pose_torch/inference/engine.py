@@ -166,9 +166,6 @@ class Pix2PoseEstimator:
 
     def __init__(self, model, cfg: EstimatorConfig = EstimatorConfig(),
                  pnp_stride: int | None = None, device="cuda"):
-        if cfg.max_pnp_points:
-            raise NotImplementedError(
-                "max_pnp_points (correspondence compaction) is not ported")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -367,12 +364,29 @@ class Pix2PoseEstimator:
         b, n, n_th = corr.cand_ok.shape
         k_c = cam_ks[:, None, None].expand(b, n, n_th, 3, 3) \
             .reshape(-1, 3, 3)
+        pts = (corr.obj, corr.img, corr.valid, corr.quality)
+        cap = cfg.max_pnp_points
+        compact = bool(cap) and cap < corr.valid.shape[-1]
+        if compact:
+            # every PnP stage then runs at ``cap`` points instead of the
+            # grid's (ops/pnp.py:compact_correspondences)
+            *pts, n_valid, n_kept = pnp_ops.compact_correspondences(
+                *pts[:3], cap, pts[3])
         res = pnp_ops.pnp_ransac_batch(
-            corr.obj, corr.img, corr.valid, k_c, generator, corr.quality,
+            *pts[:3], k_c, generator, pts[3],
             iters=cfg.ransac_iters, reproj_px=cfg.ransac_reproj_px,
             min_pts=cfg.min_pnp_px, refine_iters=cfg.gn_refine_iters,
             select_stride=cfg.select_stride,
             hyp_polish_iters=cfg.hyp_polish_iters, sample_idx=sample_idx)
+        if compact:
+            # subsampled inlier counts back in full-grid units, so the
+            # selection's dist and the frac_inlier score rank as without
+            scale = n_valid.to(torch.float32) / torch.clamp(
+                n_kept.to(torch.float32), min=1.0)
+            res = res._replace(n_inliers=torch.where(
+                res.n_inliers >= 0,
+                torch.round(res.n_inliers.to(torch.float32) * scale)
+                .to(torch.int32), res.n_inliers))
         return pnp_ops.PnPResult(*(x.reshape((b, n, n_th) + x.shape[1:])
                                    for x in res))
 

@@ -43,8 +43,10 @@ def deterministic_cudnn(on: bool = True):
     its inference pass run under it: the default GPU algorithms of its
     transposed convolutions, forward and backward, sum with atomics, so
     two float32 trainings of one seed, or two passes over the same crops,
-    gave different weights and poses. The setting stays off elsewhere:
-    the detector's training step ran 1.6-2x slower under it on an H100."""
+    gave different weights and poses. The detectors' training steps run
+    under it too: their convolutions' backward, the one operation of the
+    step without a deterministic default, made two trainings of one seed
+    differ. The detector's inference pass does not need it."""
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = on
     try:

@@ -7,7 +7,8 @@ rejectionScale=2.5, numLevels=2).registerModelToScene``
 a dense (S, T) distance matrix; pairs beyond ``rejection_scale`` x the
 median correspondence distance (floored at ``tolerance``) are dropped;
 each iteration solves the 6x6 point-to-plane normal equations with the
-rotation centred on the source centroid; two coarse-to-fine levels. All
+rotation centred on the source centroid, optionally blended with a
+point-to-point term (``pp_weight``); two coarse-to-fine levels. All
 matmuls are full fp32: the ``|a|^2 - 2ab + |b|^2`` expansion cancels
 catastrophically in TF32, and the port never enables TF32.
 """
@@ -39,8 +40,18 @@ def _masked_quantile(x, mask, q: float):
     return torch.take_along_dim(xs, idx[..., None], dim=-1)[..., 0]
 
 
+def _skew(v):
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+
 def _icp_level(R, t, src, tgt_p, tgt_n, src_valid, tgt_valid, iters: int,
-               rejection_scale: float, tolerance: float):
+               rejection_scale: float, tolerance: float,
+               pp_weight: float = 0.0):
     """``iters`` Gauss-Newton steps at one level. R (B, 3, 3), t (B, 3),
     src (B, S, 3), tgt_p/tgt_n (B, T, 3), masks (B, S)/(B, T)."""
     big = 1e12
@@ -72,6 +83,15 @@ def _icp_level(R, t, src, tgt_p, tgt_n, src_valid, tgt_valid, iters: int,
         Jw = J * w[..., None]
         JtJ = Jw.transpose(-1, -2) @ J
         Jtr = (Jw * r[..., None]).sum(1)
+        if pp_weight > 0:
+            # point-to-point term: it has no sliding null space where only
+            # flat faces are seen, weighted low so the plane term sets the
+            # converged precision
+            j_pp = torch.cat([-_skew(sp - c[:, None]),
+                              eye6[:3, :3].expand(*sp.shape, 3)], -1)
+            jw_pp = j_pp * (w * pp_weight)[..., None, None]  # (B, S, 3, 6)
+            JtJ = JtJ + torch.einsum("bsij,bsik->bjk", jw_pp, j_pp)
+            Jtr = Jtr + torch.einsum("bsij,bsi->bj", jw_pp, sp - q)
         delta = smallmat.chol_solve(JtJ + 1e-6 * eye6, -Jtr)
         delta = torch.where(torch.isfinite(delta), delta, 0.0)
         # trust region: the linearization holds for small steps only
@@ -91,6 +111,7 @@ def icp_point_to_plane(src_pts, tgt_pts, tgt_normals, src_valid=None,
                        tgt_valid=None, iters: int = 30,
                        rejection_scale: float = 2.5,
                        tolerance: float = 0.005,
+                       pp_weight: float = 0.0,
                        levels: int = 2) -> ICPResult:
     """Register source points to target clouds, batched.
 
@@ -102,6 +123,8 @@ def icp_point_to_plane(src_pts, tgt_pts, tgt_normals, src_valid=None,
         every 2^(levels-1-l)-th source point.
       rejection_scale, tolerance: pairs beyond rejection_scale x
         max(median distance, tolerance) are dropped.
+      pp_weight: weight of a point-to-point term added to the
+        point-to-plane normal equations (0: plane only).
 
     Returns :class:`ICPResult` with the delta pose p_tgt ~ R p_src + t
     (identity and ``ok=False`` when it failed or had < 10 points).
@@ -129,7 +152,7 @@ def icp_point_to_plane(src_pts, tgt_pts, tgt_normals, src_valid=None,
         st = 2 ** (levels - 1 - lvl)
         R, t, res = _icp_level(R, t, src_pts[:, ::st], tgt_pts, tgt_normals,
                                src_valid[:, ::st], tgt_valid, per_level,
-                               rejection_scale, tolerance)
+                               rejection_scale, tolerance, pp_weight)
     ok = (torch.isfinite(res) & torch.isfinite(R).all(-1).all(-1)
           & torch.isfinite(t).all(-1)
           & (src_valid.sum(-1) >= 10) & (tgt_valid.sum(-1) >= 10))

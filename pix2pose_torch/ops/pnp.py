@@ -188,6 +188,43 @@ def _take(x, idx):
     return x[ci, idx]
 
 
+def compact_correspondences(obj_pts, img_pts, valid, k_max: int,
+                            quality=None):
+    """Pack each candidate's valid correspondences into ``k_max`` slots.
+
+    obj_pts (C, N, 3), img_pts (C, N, 2), valid (C, N), quality (C, N) or
+    None. With ``n_valid <= k_max`` every valid point is kept, densely
+    packed; otherwise an order-preserving uniform subsample: the i-th valid
+    point is kept when ``floor(i * k_max / n_valid)`` steps up, so the
+    grid's spatial spread survives and no quality bias enters the
+    consensus band. Kept points come first in their original order (one
+    argsort of a key that puts kept indices before the rest).
+
+    Returns ``(obj_k, img_k, valid_k, quality_k, n_valid, n_kept)`` with
+    (C, k_max) slots; ``n_valid / max(n_kept, 1)`` rescales subsampled
+    inlier counts to full-grid units.
+    """
+    valid = valid.to(torch.bool)
+    n = valid.shape[-1]
+    cum = torch.cumsum(valid.to(torch.int32), dim=-1)
+    n_valid = cum[..., -1]
+    scale = torch.clamp(k_max / torch.clamp(n_valid.to(torch.float32),
+                                            min=1.0), max=1.0)
+    tgt = torch.floor(cum.to(torch.float32) * scale[..., None] + 1e-4) \
+        .to(torch.int32)
+    prev = torch.cat([torch.zeros_like(tgt[..., :1]), tgt[..., :-1]], -1)
+    keep = valid & (tgt > prev)
+    n_kept = keep.sum(-1, dtype=torch.int32)
+    ar = torch.arange(n, device=valid.device)
+    idx = torch.argsort(torch.where(keep, ar, n + ar), dim=-1)[..., :k_max]
+    valid_k = ar[:k_max] < n_kept[..., None]
+    obj_k = torch.where(valid_k[..., None], _take(obj_pts, idx), 0.0)
+    img_k = torch.where(valid_k[..., None], _take(img_pts, idx), 0.0)
+    q_k = (None if quality is None
+           else torch.where(valid_k, _take(quality, idx), 0.0))
+    return obj_k, img_k, valid_k, q_k, n_valid, n_kept
+
+
 def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
                      quality=None, *, iters: int = 100,
                      reproj_px: float = 5.0, min_pts: int = 6,

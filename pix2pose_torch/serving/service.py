@@ -289,3 +289,53 @@ class PoseService:
         t = ref.t_mm.cpu().numpy()
         return {(bi, oi, si): (R[i], t[i])
                 for i, (bi, oi, si, _) in enumerate(hyps) if ok[i]}
+
+
+class RosAdapter:
+    """The reference node's ROS transport over a :class:`PoseService`:
+    its topics (``cfg.rgb_topic`` and ``cfg.depth_topic`` in,
+    ``/pix2pose/detected_object`` and ``/pix2pose/object_pose`` out) and
+    its unsubscribe-while-busy backpressure (``ros_pix2pose.py:274-284,
+    375-388``): the RGB subscriber is dropped while a frame is processed,
+    so frames that arrive meanwhile are not taken, and subscribed again
+    after the frame's two images are published. Each frame goes through
+    :meth:`PoseService.process` with the newest depth (mm -> m). Needs
+    ``rospy``, ``ros_numpy`` and ``sensor_msgs``, imported by
+    :meth:`spin`."""
+
+    DETECTION_TOPIC = "/pix2pose/detected_object"
+    POSE_TOPIC = "/pix2pose/object_pose"
+
+    def __init__(self, service: PoseService):
+        self.service = service
+
+    def spin(self):
+        import ros_numpy
+        import rospy
+        from sensor_msgs.msg import Image
+
+        cfg = self.service.cfg
+        rospy.init_node("pix2pose_torch")
+        pub_det = rospy.Publisher(self.DETECTION_TOPIC, Image, queue_size=1)
+        pub_pose = rospy.Publisher(self.POSE_TOPIC, Image, queue_size=1)
+        state = {"sub": None, "depth": None}
+
+        def on_depth(msg):
+            state["depth"] = ros_numpy.numpify(msg).astype(
+                np.float32) / 1000.0
+
+        def on_rgb(msg):
+            state["sub"].unregister()  # backpressure (``ros:275``)
+            rgb = ros_numpy.numpify(msg)[..., :3]
+            res = self.service.process(rgb, state["depth"])
+            pub_det.publish(ros_numpy.msgify(
+                Image, res.detection_image, encoding="rgb8"))
+            pub_pose.publish(ros_numpy.msgify(
+                Image, res.pose_image, encoding="rgb8"))
+            state["sub"] = rospy.Subscriber(cfg.rgb_topic, Image, on_rgb,
+                                            queue_size=1)
+
+        rospy.Subscriber(cfg.depth_topic, Image, on_depth, queue_size=1)
+        state["sub"] = rospy.Subscriber(cfg.rgb_topic, Image, on_rgb,
+                                        queue_size=1)
+        rospy.spin()

@@ -18,8 +18,7 @@ Pass rule: mean(AR_B - AR_A) >= -margin and every per-seed delta >=
 -2 * margin (default margin 0.03). It prints one JSON line; ``main``
 returns 0 on pass and exits with status 1 on fail. Everything runs on ``--device`` (default ``cuda``);
 without a CUDA device the tool refuses to start unless ``--device cpu``
-is given. An override of ``max_pnp_points`` fails before training: the
-port's engine does not compact correspondences.
+is given.
 
 The generator's train config carries ``--backbone`` (the JAX tool builds
 its generator with it but leaves the config's ``paper``, which skips the
@@ -147,8 +146,7 @@ def _eval_config(root):
 
 
 def _estimator(est_overrides, backbone, device):
-    """The engine with the overrides; it refuses what the port does not
-    have."""
+    """The engine with the overrides."""
     from pix2pose_torch.inference.engine import Pix2PoseEstimator
     from pix2pose_torch.models import AutoEncoder
 

@@ -4,11 +4,12 @@ each network the port trains, with the setting off and on in one process.
     python -m pix2pose_torch.tools.cudnn_determinism [--steps 150]
         [--warmup 20] [--root DIR] [--device cuda]
 
-The generator's training step and its inference pass run under the
-setting (``models/ae.py:deterministic_cudnn``); the detector's training
-step does not. On ``ab-e2e``'s cube set (48 train views, object 1's
-pairs, 4 test images) this tool runs each measurement four times, off,
-on, on, off (so a drift of the card's clock weighs on both alike):
+The generator's training step and its inference pass and the detectors'
+training steps run under the setting (``models/ae.py:
+deterministic_cudnn``); "off" runs them outside it. On ``ab-e2e``'s cube
+set (48 train views, object 1's pairs, 4 test images) this tool runs
+each measurement four times, off, on, on, off (so a drift of the card's
+clock weighs on both alike):
 
 - the generator, paper and ResNet-50 backbones, trained from one seed
   for ``--steps`` steps at the ``train`` CLI's batch 50 in float32
@@ -19,9 +20,11 @@ on, on, off (so a drift of the card's clock weighs on both alike):
   ``ab-e2e``'s estimator and jittered GT detector (off: the engine with
   its generator pass outside the setting): seconds per image (host
   clock, synchronized), and whether both evaluations give the same poses;
-- the CenterNet detector (ResNet-50, 512 px, batch 4, k_obj 8; the
-  detector trainer's defaults) for ``--steps`` steps on one composed
-  batch from one seed: steps/s and whether the weights repeat.
+- the CenterNet detector's training step (``make_detector_step``;
+  ResNet-50, 512 px, batch 4, k_obj 8, the detector trainer's defaults)
+  for ``--steps`` steps on one composed batch from one seed, off, on, in
+  channels-last memory format with the setting on (twice), on, off:
+  steps/s and whether the weights repeat.
 
 Prints the card's name and power limit, a line per network, then one
 JSON line.
@@ -41,9 +44,9 @@ import numpy as np
 import torch
 
 from pix2pose_torch.inference.engine import Pix2PoseEstimator
-from pix2pose_torch.models.ae import deterministic_cudnn
 
-ORDER = (False, True, True, False)
+ORDER = ("off", "on", "on", "off")
+DETECTOR_ORDER = ("off", "on", "channels_last", "channels_last", "on", "off")
 
 
 class _UnpinnedEstimator(Pix2PoseEstimator):
@@ -135,40 +138,55 @@ def evaluate(root, params, backbone, deterministic, dev, seed=0):
     return (time.perf_counter() - t0) / len(targets), poses
 
 
-def train_detector_steps(store, steps, warmup, deterministic, dev, seed=0):
-    """(steps/s, detector state dict) of ``steps`` CenterNet steps from
-    ``seed`` on one composed batch (batch 4, 512 px, k_obj 8)."""
+def train_detector_steps(store, steps, warmup, variant, dev, seed=0):
+    """(steps/s, detector state dict) of ``steps`` steps of the
+    detector trainer's own CenterNet step (``make_detector_step``) from
+    ``seed`` on one composed batch (batch 4, 512 px, k_obj 8). ``variant``
+    "on" is the step as it ships; "off" the same step with the setting
+    it enters turned off (its ``deterministic_cudnn`` patched to
+    ``deterministic_cudnn(False)``); "channels_last" the shipped step on
+    the network's weights in channels-last memory format."""
+    from unittest import mock
+
     from pix2pose_torch.models import CenterNetDetector
+    from pix2pose_torch.models.ae import deterministic_cudnn
+    from pix2pose_torch.training import detector_train
     from pix2pose_torch.training.detector_data import make_detector_batch
-    from pix2pose_torch.training.detector_train import (
-        create_detector_state, make_detector_step)
 
     batch = make_detector_batch(
         store, torch.Generator(device=dev).manual_seed(seed), 4, 512, 8)
-    state = create_detector_state(CenterNetDetector(store.num_classes),
-                                  seed, dev)
-    step_fn = make_detector_step(state.model)
-    with deterministic_cudnn(deterministic):
+    state = detector_train.create_detector_state(
+        CenterNetDetector(store.num_classes), seed, dev)
+    if variant == "channels_last":  # the parameters keep their identity
+        # (the NHWC image enters the trunk channels-last already)
+        state.model.to(memory_format=torch.channels_last)
+    step_fn = detector_train.make_detector_step(state.model)
+    with mock.patch.object(detector_train, "deterministic_cudnn",
+                           lambda: deterministic_cudnn(variant != "off")):
         rate = _rate(lambda it: step_fn(state, batch, 2.5e-4), steps,
                      warmup)
     return rate, _weights(state.model)
 
 
 def _summary(rates, weights, secs=None, poses=None) -> dict:
+    """Each setting's steps/s and whether its two runs repeat; the cost of
+    each setting other than "off" in steps/s (and of "on" in seconds per
+    image)."""
     res = {}
-    for det, name in ((False, "off"), (True, "on")):
-        a, b = weights[det]
-        res[name] = {"train_steps_per_s": rates[det],
+    for name in rates:
+        a, b = weights[name]
+        res[name] = {"train_steps_per_s": rates[name],
                      "train_repeats": all(torch.equal(a[k], b[k])
                                           for k in a)}
         if secs is not None:
-            res[name].update(eval_s_per_image=secs[det],
-                             eval_repeats=poses[det][0] == poses[det][1],
-                             eval_poses=len(poses[det][0]))
-    res["train_cost"] = float(1.0 - np.mean(rates[True])
-                              / np.mean(rates[False]))
+            res[name].update(eval_s_per_image=secs[name],
+                             eval_repeats=poses[name][0] == poses[name][1],
+                             eval_poses=len(poses[name][0]))
+        if name != "off":
+            res[f"train_cost_{name}"] = float(
+                1.0 - np.mean(rates[name]) / np.mean(rates["off"]))
     if secs is not None:
-        res["eval_cost"] = float(np.mean(secs[True]) / np.mean(secs[False])
+        res["eval_cost"] = float(np.mean(secs["on"]) / np.mean(secs["off"])
                                  - 1.0)
     return res
 
@@ -187,26 +205,29 @@ def measure(steps: int, warmup: int, root=None, device="cuda") -> dict:
                             root + "/backs", device=dev)
     out = {}
     for backbone in ("paper", "resnet50"):
-        rates, weights = {False: [], True: []}, {False: [], True: []}
-        for det in ORDER:
-            r, w = train_generator(store, backbone, steps, warmup, det, dev)
-            rates[det].append(r)
-            weights[det].append(w)
-        secs, poses = {False: [], True: []}, {False: [], True: []}
-        for det in ORDER:
-            s, p = evaluate(root, weights[True][0], backbone, det, dev)
-            secs[det].append(s)
-            poses[det].append(p)
+        rates, weights = {"off": [], "on": []}, {"off": [], "on": []}
+        for name in ORDER:
+            r, w = train_generator(store, backbone, steps, warmup,
+                                   name == "on", dev)
+            rates[name].append(r)
+            weights[name].append(w)
+        secs, poses = {"off": [], "on": []}, {"off": [], "on": []}
+        for name in ORDER:
+            s, p = evaluate(root, weights["on"][0], backbone, name == "on",
+                            dev)
+            secs[name].append(s)
+            poses[name].append(p)
         out[f"generator_{backbone}"] = _summary(rates, weights, secs, poses)
         print(f"generator {backbone}: {json.dumps(out[f'generator_{backbone}'])}",
               flush=True)
     det_store = load_store(BopDataset(root, "cubes", train=True),
                            root + "/backs", dev)
-    rates, weights = {False: [], True: []}, {False: [], True: []}
-    for det in ORDER:
-        r, w = train_detector_steps(det_store, steps, warmup, det, dev)
-        rates[det].append(r)
-        weights[det].append(w)
+    rates = {name: [] for name in DETECTOR_ORDER}
+    weights = {name: [] for name in DETECTOR_ORDER}
+    for name in DETECTOR_ORDER:
+        r, w = train_detector_steps(det_store, steps, warmup, name, dev)
+        rates[name].append(r)
+        weights[name].append(w)
     out["detector_centernet"] = _summary(rates, weights)
     print(f"detector centernet: {json.dumps(out['detector_centernet'])}",
           flush=True)

@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from pix2pose_torch.models.ae import deterministic_cudnn
 from pix2pose_torch.models.detector import CenterNetDetector, detector_loss
 from pix2pose_torch.training.detector_data import (DetectorStore,
                                                    make_detector_batch,
@@ -96,13 +97,17 @@ def make_detector_step(model: nn.Module):
     """``step(state, batch, lr) -> parts``: the train-mode forward, the
     :func:`~pix2pose_torch.models.detector.detector_loss` (with the
     instance-mask term when the batch has ``gt_mask``) and one Adam update,
-    in place. ``parts`` (``total``, ``heat``, ``wh``, ``off``, ``seg``,
-    ``mask``) are 0-d device tensors: no host sync."""
+    in place, under cuDNN's deterministic algorithms
+    (:func:`~pix2pose_torch.models.ae.deterministic_cudnn`: two trainings
+    of one seed give the same weights). ``parts`` (``total``, ``heat``,
+    ``wh``, ``off``, ``seg``, ``mask``) are 0-d device tensors: no host
+    sync."""
 
     def step(state: DetTrainState, batch: dict, lr: float) -> dict:
         model.train()
-        total, parts = detector_loss(model(batch["image"]), batch)
-        adam_update(state, total, lr)
+        with deterministic_cudnn():
+            total, parts = detector_loss(model(batch["image"]), batch)
+            adam_update(state, total, lr)
         parts = {k: v.detach() for k, v in parts.items()}
         parts["total"] = total.detach()
         return parts

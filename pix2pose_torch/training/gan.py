@@ -133,22 +133,31 @@ def compute_autocast(cfg: TrainConfig, device_type: str):
     return torch.autocast(device_type, dtype=torch.bfloat16)
 
 
-def _disc_update(disc, opt, imgs, labels, autocast):
+def _disc_update(disc, opt, imgs, labels, autocast, reduce_grads):
     disc.train()
     opt.zero_grad(set_to_none=True)
     with autocast():
         logits = disc(imgs)
     loss = bce_logits(logits.float(), labels)
     loss.backward()
+    reduce_grads(disc)
     opt.step()
     return loss.detach()
 
 
-def make_train_step(cfg: TrainConfig, deterministic: bool = True):
+def _no_reduce(net: nn.Module):
+    pass
+
+
+def make_train_step(cfg: TrainConfig, deterministic: bool = True,
+                    reduce_grads=_no_reduce):
     """``step(state, batch, sym_pool, lr, labels) -> metrics``: one GAN
     iteration that updates ``state`` in place, under cuDNN's
     deterministic algorithms unless ``deterministic`` is False
-    (:func:`~pix2pose_torch.models.ae.deterministic_cudnn`). ``batch``: ``src``,
+    (:func:`~pix2pose_torch.models.ae.deterministic_cudnn`).
+    ``reduce_grads(net)`` runs on the updated network's gradients before
+    each of the three Adam updates (the data-parallel step averages them
+    there, :mod:`pix2pose_torch.parallel.mesh`). ``batch``: ``src``,
     ``tgt`` (B, S, S, 3) in [-1, 1] and ``prob_gt`` (B, S, S, 1);
     ``sym_pool`` (n_sym, 3, 3); ``labels`` from :func:`draw_labels`.
     Returns 0-d device tensors (no host sync): ``disc_loss`` (the mean of
@@ -174,11 +183,13 @@ def make_train_step(cfg: TrainConfig, deterministic: bool = True):
         with torch.no_grad(), autocast():
             fake = gen(src)[0].float()
         y_fake = torch.where(labels["flip_fake"], 1.0, labels["y_fake"])
-        dl1 = _disc_update(disc, state.disc_opt, fake, y_fake, autocast)
+        dl1 = _disc_update(disc, state.disc_opt, fake, y_fake, autocast,
+                           reduce_grads)
 
         # --- discriminator on reals ---------------------------------------
         y_real = torch.where(labels["flip_real"], 0.0, labels["y_real"])
-        dl2 = _disc_update(disc, state.disc_opt, tgt, y_real, autocast)
+        dl2 = _disc_update(disc, state.disc_opt, tgt, y_real, autocast,
+                           reduce_grads)
 
         # --- generator (discriminator frozen; loss weights 100 / 1) -------
         gen.train()
@@ -196,6 +207,7 @@ def make_train_step(cfg: TrainConfig, deterministic: bool = True):
                              torch.ones((), device=src.device))
             total = cfg.loss_weight_recon * recon + cfg.loss_weight_gan * adv
             total.backward()
+            reduce_grads(gen)
             state.gen_opt.step()
         finally:
             disc.requires_grad_(True)

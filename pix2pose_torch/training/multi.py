@@ -89,14 +89,16 @@ def new_object_run(obj_id: int, store: PatchStore, sym_pool,
         rng=torch.Generator(device=dev).manual_seed(data_seed))
 
 
-def make_multi_step(cfg: TrainConfig):
+def make_multi_step(cfg: TrainConfig, train_step=None):
     """``step(runs, step_idx, lr, batches=None, labels=None) -> metrics``:
     one iteration for K objects, updating each run's state in place.
     Object k draws its batch (``make_batch`` at ``step_idx``) and then its
     labels (``draw_labels``) from its own generator unless ``batches[k]``
-    / ``labels[k]`` are given (the tests inject the JAX package's).
+    / ``labels[k]`` are given (the tests inject the JAX package's), and
+    takes ``train_step`` on them (default ``make_train_step(cfg)``; the
+    data-parallel one of :mod:`pix2pose_torch.parallel.mesh`).
     Returns each metric as a (K,) device tensor: no host sync."""
-    raw_step = make_train_step(cfg)
+    raw_step = train_step or make_train_step(cfg)
 
     def step(runs: Sequence[ObjectRun], step_idx: int, lr: float,
              batches=None, labels=None) -> dict:

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from pix2pose_torch.models.ae import deterministic_cudnn
 from pix2pose_torch.models.retinanet import (RetinaNetDetector,
                                              anchor_boxes, retinanet_loss)
 from pix2pose_torch.training.detector_data import (DetectorStore,
@@ -52,16 +53,18 @@ def make_retinanet_step(model: nn.Module, anchors, pos_iou: float = 0.5,
     """``step(state, batch, lr) -> parts`` (``total``, ``cls``, ``box``;
     0-d device tensors): the train-mode forward, the anchor assignment
     from ``gt_bbox`` / ``gt_cls`` / ``gt_valid``, the focal + smooth-L1
-    loss and one Adam update, in place."""
+    loss and one Adam update, in place, under cuDNN's deterministic
+    algorithms (as the CenterNet step)."""
 
     def step(state: DetTrainState, batch: dict, lr: float) -> dict:
         model.train()
-        total, parts = retinanet_loss(
-            model(batch["image"]), torch.as_tensor(
-                anchors, device=batch["image"].device),
-            batch["gt_bbox"], batch["gt_cls"], batch["gt_valid"],
-            model.num_classes, pos_iou=pos_iou, neg_iou=neg_iou)
-        adam_update(state, total, lr)
+        with deterministic_cudnn():
+            total, parts = retinanet_loss(
+                model(batch["image"]), torch.as_tensor(
+                    anchors, device=batch["image"].device),
+                batch["gt_bbox"], batch["gt_cls"], batch["gt_valid"],
+                model.num_classes, pos_iou=pos_iou, neg_iou=neg_iou)
+            adam_update(state, total, lr)
         parts = {k: v.detach() for k, v in parts.items()}
         parts["total"] = total.detach()
         return parts

@@ -20,9 +20,10 @@ which needs JAX to read. Convert it once where JAX is installed, with
 
     export_inference(wdir, jax.device_get(load_inference_params(wdir)))
 
-Keras ``inference*.hdf5`` files are read by the JAX package's import
-shim; the port does not read them yet (its ``hdf5_import`` holds only the
-ImageNet trunk import).
+A reference Keras ``inference*.hdf5`` (no ``inference.npz`` beside it)
+is read through :mod:`pix2pose_torch.utils.hdf5_import`, the loader
+chosen by the file's name as the JAX package chooses it; ``python -m
+pix2pose_torch convert-weights`` writes it out as ``inference.npz`` once.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ import os
 import numpy as np
 
 NPZ_NAME = "inference.npz"
-_KERAS_NAMES = ("inference.hdf5", "inference_resnet_model.hdf5",
-                "inference_resnet50.hdf5")
+KERAS_NAMES = ("inference.hdf5", "inference_resnet_model.hdf5",
+               "inference_resnet50.hdf5")
 
 
 def _flatten(tree, prefix=""):
@@ -124,10 +125,12 @@ def export_inference(weight_dir: str, variables: dict) -> str:
 
 
 def load_inference_params(weight_dir: str) -> dict | None:
-    """The variables tree of ``<weight_dir>/inference.npz`` as nested
-    dicts of numpy arrays, or None when the directory holds no inference
-    checkpoint. Raises when it holds only a format the port cannot read
-    (an orbax ``inference/`` directory, a Keras ``inference*.hdf5``)."""
+    """The variables tree of ``<weight_dir>/inference.npz``, else of a
+    Keras ``inference.hdf5`` / ``inference_resnet_model.hdf5`` /
+    ``inference_resnet50.hdf5`` (ResNet-50 for a name with "resnet"), as
+    nested dicts of numpy arrays; None when the directory holds no
+    inference checkpoint. Raises on an orbax ``inference/`` directory,
+    which needs JAX to read."""
     path = os.path.join(weight_dir, NPZ_NAME)
     if os.path.exists(path):
         tree: dict = {}
@@ -150,12 +153,9 @@ def load_inference_params(weight_dir: str) -> dict | None:
             f"export_inference\n"
             f"  export_inference(wdir, jax.device_get("
             f"load_inference_params(wdir)))")
-    for name in _KERAS_NAMES:
-        if os.path.exists(os.path.join(weight_dir, name)):
-            raise RuntimeError(
-                f"{os.path.join(weight_dir, name)} is a Keras checkpoint; "
-                f"the port cannot read it yet. Import it with the JAX "
-                f"package (pix2pose_tpu.utils.checkpoint."
-                f"load_inference_params) and convert the result with "
-                f"pix2pose_torch.utils.checkpoint.export_inference")
+    for name in KERAS_NAMES:
+        h5 = os.path.join(weight_dir, name)
+        if os.path.exists(h5):
+            from pix2pose_torch.utils.hdf5_import import load_keras_inference
+            return load_keras_inference(h5)
     return None

@@ -1,7 +1,7 @@
 """pix2pose_torch ``ab-e2e`` on the CPU: override parsing against the JAX
 tool's, exactly; a mini A/B whose identical variants give a delta of
-exactly 0; the refusal of ``max_pnp_points``, which the port's engine
-does not have; the exit codes. The mini runs build the cube set with 8
+exactly 0; a ``max_pnp_points`` override, which the engine runs with its
+correspondences compacted; the exit codes. The mini runs build the cube set with 8
 train views (the tool's default is 48) and train 2 steps at batch 2 (an
 override on both sides; the tool's batch is 32).
 """
@@ -69,15 +69,28 @@ def test_identical_variants_give_zero_delta(root, capsys):
 
 
 def test_max_pnp_points_override_fails_before_training(root, monkeypatch):
-    def no_training(*args, **kw):
-        raise AssertionError("trained before refusing")
+    """A ``max_pnp_points`` override is accepted and runs: B's engine
+    compacts its correspondences to the cap (the engine's PnP calls
+    ``compact_correspondences``), both ARs are in [0, 1], and "none" keeps
+    the engine's default (no cap)."""
+    from pix2pose_torch.ops import pnp
 
-    monkeypatch.setattr(tab, "_train", no_training)
-    with pytest.raises(NotImplementedError, match="max_pnp_points"):
-        tab.run_ab(seeds=1, steps=2, a_pairs=[],
-                   b_pairs=["max_pnp_points=512"], root=root, device="cpu")
-    # "none" keeps the engine's default, which it has
-    tab.parse_overrides(["max_pnp_points=none"])
+    caps = []
+    compact = pnp.compact_correspondences
+
+    def counting(obj, img, valid, k_max, quality=None):
+        caps.append(k_max)
+        return compact(obj, img, valid, k_max, quality)
+
+    monkeypatch.setattr(pnp, "compact_correspondences", counting)
+    out = tab.run_ab(seeds=1, steps=2, a_pairs=[SMALL],
+                     b_pairs=[SMALL, "max_pnp_points=512"], root=root,
+                     device="cpu")
+    assert caps and set(caps) == {512}
+    assert out["retrained"] is False
+    assert all(0.0 <= out["rows"][0][k] <= 1.0 for k in ("ar_a", "ar_b"))
+    assert tab.parse_overrides(["max_pnp_points=none"]) == (
+        {}, {"max_pnp_points": None})
 
 
 def test_exit_codes(root, monkeypatch):

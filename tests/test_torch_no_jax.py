@@ -1,6 +1,7 @@
-"""The port stands alone: pix2pose_torch and chip_smoke.py import neither
-jax nor the JAX package, and chip_smoke.py refuses to run (non-zero exit,
-no result line) without a CUDA device."""
+"""The port stands alone: pix2pose_torch and chip_smoke.py (with the two
+stand-ins it takes from ``tests/``) import neither jax nor the JAX package (nor h5py, which the GPU machine lacks, until a
+Keras file is read), and chip_smoke.py refuses to run (non-zero exit, no
+result line) without a CUDA device."""
 
 import os
 import pkgutil
@@ -22,8 +23,9 @@ def _env(**extra):
 def test_port_imports_no_jax():
     import pix2pose_torch
 
-    sources = sorted((REPO / "pix2pose_torch").rglob("*.py")) \
-        + [REPO / "chip_smoke.py"]
+    sources = sorted((REPO / "pix2pose_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_ros_loopback.py",
+        REPO / "tests" / "torch_icp_clouds.py"]
     pat = re.compile(r"^\s*(import|from)\s+pix2pose_tpu\b", re.M)
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
@@ -33,14 +35,16 @@ def test_port_imports_no_jax():
     for m in ("ops.rasterizer_cuda", "training.detector_train",
               "training.retinanet_train", "eval.detection_metrics",
               "tools.eval_detector", "tools.scene_gen_detection",
-              "training.multi", "tools.rehearsal", "tools.ab_e2e"):
+              "training.multi", "tools.rehearsal", "tools.ab_e2e",
+              "parallel.mesh", "tools.convert_weights",
+              "tools.icp_robustness", "tools.parity_lmo"):
         assert f"pix2pose_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules\n"
             "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                    'pix2pose_tpu'))\n"
+            "                                    'pix2pose_tpu', 'h5py'))\n"
             "assert not bad, bad\n"
             "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -145,3 +145,50 @@ def test_pnp_ransac_batch_generator_per_group(jax_batch):
             assert torch.equal(x[rows], y)
     with pytest.raises(ValueError):
         tpnp.pnp_ransac_batch(*args, k, gens() + gens()[:1], q, **KW)
+
+
+def test_compaction_matches_jax_and_engine_keeps_the_pose(jax_batch):
+    """``compact_correspondences``: the kept points, their packed order,
+    counts and quality equal the JAX function's exactly, for a cap below
+    and above each candidate's valid count (600, 300, 5, 1024 valid of
+    1024). Then the engine with ``max_pnp_points=1024`` on the analytic
+    cube scene (the oracle generator) against the full grid, with
+    ``tests/test_engine.py``'s bars: valid, rotation within 3 deg, t
+    within 2% of t_z, frac_inlier within 15% of the full grid's."""
+    from pix2pose_torch.config import EstimatorConfig
+    from pix2pose_torch.inference.engine import Pix2PoseEstimator
+    from pix2pose_torch.utils import synthetic as tsyn
+    from synthetic import CAM_K as SCENE_K
+    from synthetic import pose_with_euler, xyz_scene
+
+    (obj, img, valid, quality), _, _ = jax_batch
+    for cap in (256, 512):
+        ref = jax.vmap(lambda o, i, v, q: jpnp.compact_correspondences(
+            o, i, v, cap, q))(obj, img, valid, quality)
+        got = tpnp.compact_correspondences(
+            *(torch.from_numpy(x) for x in (obj, img, valid)), cap,
+            torch.from_numpy(quality))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert [int(n) for n in got[5]] == [512, 300, 5, 512]
+
+    R, t = pose_with_euler()
+    rgb, obj_param, hit = xyz_scene(R, t)
+    vs, us = np.nonzero(hit)
+    bboxes = np.stack([np.array([vs.min(), us.min(), vs.max() + 1,
+                                 us.max() + 1], np.int32),
+                       np.zeros(4, np.int32)])
+    out = {}
+    for cap in (None, 1024):
+        cfg = EstimatorConfig(outlier_th=(0.1, 0.2, 0.3), inlier_th=0.1,
+                              pnp_stride=2, max_pnp_points=cap)
+        est = Pix2PoseEstimator(tsyn.OracleGenerator(), cfg, device="cpu")
+        out[cap] = est(None, rgb, bboxes, np.array([True, False]), SCENE_K,
+                       obj_param, torch.Generator().manual_seed(1))
+    full, comp = out[None], out[1024]
+    assert bool(comp.valid[0]) and not bool(comp.valid[1])
+    cos = (np.trace(comp.R[0].numpy().T @ R) - 1) / 2
+    assert np.degrees(np.arccos(np.clip(cos, -1, 1))) < 3.0
+    assert np.linalg.norm(comp.t[0].numpy() - t) < 0.02 * t[2]
+    f_full, f_comp = float(full.frac_inlier[0]), float(comp.frac_inlier[0])
+    assert abs(f_comp - f_full) < 0.15 * max(f_full, 1e-6)

@@ -39,6 +39,7 @@ from pix2pose_torch.utils import checkpoint as ckpt_util
 from pix2pose_torch.utils.convert import (flax_to_state_dict,
                                           random_flax_variables)
 from test_torch_resnet50 import calibrate_batch_stats, seeded_flax_variables
+from test_hdf5_import import _write_fake_keras_resnet50_generator
 
 torch.set_num_threads(1)
 
@@ -121,10 +122,11 @@ def test_create_server_matches_jax_cli(cli_dataset):
 
 
 def test_create_server_requires_weights_and_cuda(cli_dataset, tmp_path):
-    """"no trained objects" without weights, as the JAX CLI says (and a
-    clear error for a Keras checkpoint, which the port cannot read yet);
-    without ``--device`` on a host with no CUDA device the CLI refuses to
-    start instead of picking the CPU."""
+    """"no trained objects" without weights, as the JAX CLI says; a
+    reference Keras checkpoint (``inference_resnet_model.hdf5``) is
+    loaded strictly into the generator, and the start-up then stops at
+    the missing detector; without ``--device`` on a host with no CUDA
+    device the CLI refuses to start instead of picking the CPU."""
     root, ros_cfg, _, _ = cli_dataset
     bare = str(tmp_path / "bare")
     build_cube_dataset(bare, n_scenes=1, ims_per_scene=1, split="test")
@@ -133,8 +135,9 @@ def test_create_server_requires_weights_and_cuda(cli_dataset, tmp_path):
                                  "--device", "cpu"])
     keras_dir = os.path.join(bare, "cubes", "pix2pose_weights", "01")
     os.makedirs(keras_dir)
-    open(os.path.join(keras_dir, "inference.hdf5"), "wb").close()
-    with pytest.raises(RuntimeError, match="Keras"):
+    _write_fake_keras_resnet50_generator(
+        os.path.join(keras_dir, "inference_resnet_model.hdf5"))
+    with pytest.raises(SystemExit, match="no trained detector"):
         serve_cli.create_server([ros_cfg, bare, "cubes", "--port", "0",
                                  "--device", "cpu"])
     if torch.cuda.is_available():
