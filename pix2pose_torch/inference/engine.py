@@ -45,6 +45,7 @@ from pix2pose_torch.ops import pnp as pnp_ops
 from pix2pose_torch.ops.boxes import CropBox
 from pix2pose_torch.ops.color import color01_to_xyz, tanh_to_color01
 from pix2pose_torch.ops.smallmat import first_argmax
+from pix2pose_torch.utils import tracing
 
 
 class PoseEstimate(NamedTuple):
@@ -276,7 +277,9 @@ class Pix2PoseEstimator:
         n = bboxes.shape[1]
         box1 = boxes_ops.get_boxes(bboxes, im_h, im_w, cfg.box_size)
         crops1 = crop_ops.crop_resize(rgb_n, box1, size, True)
-        dec1, prob1 = self._apply(params, crops1.reshape(-1, size, size, 3))
+        with tracing.span("engine.generator", b * n):
+            dec1, prob1 = self._apply(params,
+                                      crops1.reshape(-1, size, size, 3))
         dec1 = dec1.reshape(b, n, size, size, 3)
         prob1 = prob1.reshape(b, n, size, size)
         fg1 = torch.linalg.vector_norm(dec1, dim=-1) > cfg.gray_norm_th
@@ -451,16 +454,24 @@ class Pix2PoseEstimator:
         n_th = th_o.shape[0]
         # normalize once: (x - 128)/128 (``recognition.py:77``)
         rgb_n = (rgbs.to(torch.float32) - 128.0) / 128.0
-        s1 = self.stage1(params, rgb_n, bboxes, det_masks)
-        stage2_in, cand_ok = self.stage2_inputs(rgb_n, s1, th_o)
-        dec2, prob2 = self._apply(params,
-                                  stage2_in.reshape(-1, size, size, 3))
+        # host spans, one per stage (utils/tracing.py; no-ops when off)
+        with tracing.span("engine.stage1", b * n):
+            s1 = self.stage1(params, rgb_n, bboxes, det_masks)
+        with tracing.span("engine.stage2_inputs", b * n):
+            stage2_in, cand_ok = self.stage2_inputs(rgb_n, s1, th_o)
+        with tracing.span("engine.generator", b * n):
+            dec2, prob2 = self._apply(params,
+                                      stage2_in.reshape(-1, size, size, 3))
         dec2 = dec2.reshape(b, n, n_th, size, size, 3)
         prob2 = prob2.reshape(b, n, n_th, size, size)
-        corr = self.correspondences(dec2, prob2, s1.box2, obj_param,
-                                    cand_ok, det_masks)
-        res = self.solve(corr, cam_ks, generator)
-        return self.select(s1, corr, res, cam_ks, det_valid.to(torch.bool))
+        with tracing.span("engine.correspondences", b * n):
+            corr = self.correspondences(dec2, prob2, s1.box2, obj_param,
+                                        cand_ok, det_masks)
+        with tracing.span("engine.pnp", b * n):
+            res = self.solve(corr, cam_ks, generator)
+        with tracing.span("engine.select", b * n):
+            return self.select(s1, corr, res, cam_ks,
+                               det_valid.to(torch.bool))
 
 
 def _map(est: PoseEstimate, fn) -> PoseEstimate:

@@ -15,11 +15,18 @@ Wire format, both directions: ``[u32 len][json][payload bytes...]``.
 Request header: ``{"h", "w", "dtype", "want_images", "has_depth"}`` +
 rgb bytes (+ float32 depth-in-meters bytes when ``has_depth``).
 Response header: ``{"poses": [{obj_id, R, t, score, bbox}], "latency_s",
-"server_batch"}`` (+ det/pose image bytes when ``want_images``).
+"server_batch"}`` (+ det/pose image bytes when ``want_images``):
+``latency_s`` is this request's own time in the server, from its enqueue
+to its result, and ``server_batch`` the frames of the batch it ran in.
+
+With :mod:`pix2pose_torch.utils.tracing` on, the frontend records each
+request's ``server.queue`` wait (enqueue to dispatch) and a
+``server.dispatch`` span around each batch.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import socket
 import struct
@@ -28,6 +35,8 @@ import time
 from typing import Sequence
 
 import numpy as np
+
+from pix2pose_torch.utils import tracing
 
 
 # ---------------------------------------------------------------- framing
@@ -72,7 +81,7 @@ def _recv_msg(sock: socket.socket, n_payloads: int = 0):
 # ---------------------------------------------------------- batching core
 class _Pending:
     __slots__ = ("rgb", "depth", "want_images", "event", "result",
-                 "batch_size")
+                 "batch_size", "ident", "t_enq", "t_enq_ns", "latency_s")
 
     def __init__(self, rgb, want_images, depth=None):
         self.rgb = rgb
@@ -81,6 +90,7 @@ class _Pending:
         self.event = threading.Event()
         self.result = None
         self.batch_size = 0
+        self.latency_s = 0.0
 
 
 class BatchingFrontend:
@@ -95,16 +105,20 @@ class BatchingFrontend:
         self._q: list[_Pending] = []
         self._cv = threading.Condition()
         self._stop = False
-        self.batch_sizes: list[int] = []  # dispatch-size telemetry
+        self._tickets = itertools.count(1)
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def submit(self, rgb: np.ndarray, want_images: bool = False,
                depth: np.ndarray | None = None):
         """Blocking: returns the completed ticket (``.result`` is the
-        frame's FrameResult, ``.batch_size`` the dispatch batch size)."""
+        frame's FrameResult, ``.batch_size`` the dispatch batch size,
+        ``.latency_s`` the seconds from enqueue to result)."""
         p = _Pending(rgb, want_images, depth)
         with self._cv:
+            p.ident = next(self._tickets)
+            p.t_enq_ns = time.time_ns() if tracing.enabled() else 0
+            p.t_enq = time.monotonic()
             self._q.append(p)
             self._cv.notify()
         p.event.wait()
@@ -138,18 +152,24 @@ class BatchingFrontend:
                          ][:self.max_batch]
                 taken = set(map(id, batch))
                 self._q = [p for p in self._q if id(p) not in taken]
+                t_take_ns = time.time_ns() if tracing.enabled() else 0
             try:
-                want = any(p.want_images for p in batch)
-                depths = ([p.depth for p in batch]
-                          if any(p.depth is not None for p in batch)
-                          else None)
-                results = self.service.process_many(
-                    [p.rgb for p in batch], depths=depths,
-                    want_images=want)
-                self.batch_sizes.append(len(batch))
+                with tracing.span("server.dispatch", len(batch)) as sp:
+                    for p in batch:
+                        if p.t_enq_ns and t_take_ns:
+                            tracing.wait("server.queue", p.t_enq_ns,
+                                         t_take_ns, p.ident, sp.id)
+                    want = any(p.want_images for p in batch)
+                    depths = ([p.depth for p in batch]
+                              if any(p.depth is not None for p in batch)
+                              else None)
+                    results = self.service.process_many(
+                        [p.rgb for p in batch], depths=depths,
+                        want_images=want)
                 for p, r in zip(batch, results):
                     p.result = r
                     p.batch_size = len(batch)
+                    p.latency_s = time.monotonic() - p.t_enq
                     p.event.set()
             except Exception as e:  # surface to every waiter
                 for p in batch:
@@ -237,7 +257,7 @@ class PoseServer:
                      "score": float(po.score),
                      "bbox": [int(x) for x in po.bbox]}
                     for po in res.poses],
-                    "latency_s": res.latency_s,
+                    "latency_s": p.latency_s,
                     "server_batch": p.batch_size}
                 blobs = []
                 if want:
@@ -295,37 +315,3 @@ class PoseClient:
         except OSError:
             pass
 
-
-def benchmark_concurrent(server: PoseServer, rgb: np.ndarray,
-                         n_clients: int = 4, n_frames: int = 8) -> dict:
-    """Drive the server with concurrent clients; returns latency and
-    throughput stats plus the dispatch batch-size histogram."""
-    host, port = server.address
-    lat: list[float] = []
-    lock = threading.Lock()
-
-    def one_client():
-        c = PoseClient(host, port)
-        try:
-            for _ in range(n_frames):
-                t0 = time.time()
-                c.estimate(rgb)
-                with lock:
-                    lat.append(time.time() - t0)
-        finally:
-            c.close()
-
-    threads = [threading.Thread(target=one_client)
-               for _ in range(n_clients)]
-    t0 = time.time()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    wall = time.time() - t0
-    sizes = server.frontend.batch_sizes
-    return {"frames": n_clients * n_frames, "wall_s": wall,
-            "fps": n_clients * n_frames / wall,
-            "latency_p50_ms": float(np.median(lat) * 1e3),
-            "latency_p95_ms": float(np.percentile(lat, 95) * 1e3),
-            "batch_sizes": sizes[-(n_clients * n_frames):]}

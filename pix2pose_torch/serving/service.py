@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from typing import Sequence
 
 import numpy as np
@@ -25,6 +24,7 @@ from pix2pose_torch.config import EstimatorConfig
 from pix2pose_torch.inference.engine import (Pix2PoseEstimator,
                                              stack_object_params)
 from pix2pose_torch.serving import viz
+from pix2pose_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -78,7 +78,6 @@ class FrameResult:
     poses: list
     detection_image: np.ndarray  # annotated boxes
     pose_image: np.ndarray       # 3D bbox overlays
-    latency_s: float
 
 
 class PoseService:
@@ -151,7 +150,6 @@ class PoseService:
         ``cfg.icp`` and ``meshes_m``, every valid pose of every frame with
         depth is ICP-refined in one further batch. Returns a list of
         :class:`FrameResult` (images None unless ``want_images``)."""
-        t0 = time.time()
         obj_ids = self._obj_ids
         n_obj = len(obj_ids)
         b = len(rgbs)
@@ -176,6 +174,10 @@ class PoseService:
                 valid[bi, oi, si] = True
                 kept[(bi, oi, si)] = d
                 slot[d.obj_id] = si + 1
+        if tracing.enabled():
+            # the slots the engine runs, and those holding a detection
+            tracing.count("service.slots", valid.size)
+            tracing.count("service.detections", int(valid.sum()))
 
         imgs = torch.as_tensor(np.stack(rgbs), device=self.device)
         cam_ks = self._cam_k.expand(b, 3, 3)
@@ -194,7 +196,6 @@ class PoseService:
                                          kept, obj_ids, rgbs[0].shape[:2])
 
         results = []
-        per_frame = (time.time() - t0) / max(b, 1)
         for bi in range(b):
             det_img = rgbs[bi].copy() if want_images else None
             pose_img = rgbs[bi].copy() if want_images else None
@@ -217,8 +218,7 @@ class PoseService:
                                 pose_img, self.box_corners[obj_id], R, t,
                                 self.cfg.cam_K, copy=False)
             results.append(FrameResult(poses=poses, detection_image=det_img,
-                                       pose_image=pose_img,
-                                       latency_s=per_frame))
+                                       pose_image=pose_img))
         return results
 
     # ------------------------------------------------------------------

@@ -6,6 +6,8 @@ byte. Poses are held to 5% of the true translation (5 mm floor with depth,
 3 mm without), as in the JAX package's serving tests."""
 
 import json
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -16,9 +18,9 @@ from pix2pose_tpu.serving.server import PoseClient as JPoseClient
 from pix2pose_torch.ops import rasterizer
 from pix2pose_torch.serving import (PoseClient, PoseServer, PoseService,
                                     ServingConfig)
-from pix2pose_torch.serving.server import benchmark_concurrent
 from pix2pose_torch.serving.viz import bbox_corners
 from pix2pose_torch.utils import synthetic as tsyn
+from pix2pose_torch.utils import tracing
 
 torch.set_num_threads(1)
 CAM_K = tsyn.CAM_K
@@ -71,13 +73,46 @@ def test_server_round_trip_and_concurrency(served):
     try:
         c = PoseClient(*server.address)
         rgb, _, _, t = frames[1]
+        t0 = time.monotonic()
         out = c.estimate(rgb)
+        wall = time.monotonic() - t0
         np.testing.assert_allclose(out["poses"][0]["t"], t, rtol=0.05,
                                    atol=3.0)
+        # the request's own time in the server, inside its round trip
+        assert 0 < out["latency_s"] <= wall
         c.close()
-        stats = benchmark_concurrent(server, rgb, n_clients=3, n_frames=2)
-        assert stats["frames"] == 6 and stats["fps"] > 0
-        assert max(server.frontend.batch_sizes) >= 2
+
+        # 3 concurrent clients of 2 frames each: while one batch runs,
+        # the others queue, so some batch holds more than one frame
+        replies, errors = [], []
+
+        def one_client():
+            cl = PoseClient(*server.address)
+            try:
+                for _ in range(2):
+                    replies.append(cl.estimate(rgb))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+            finally:
+                cl.close()
+
+        tracing.take()
+        tracing.enable()
+        try:
+            threads = [threading.Thread(target=one_client)
+                       for _ in range(3)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+        finally:
+            tracing.disable()
+        rec = tracing.take()
+        assert not any(th.is_alive() for th in threads) and not errors
+        assert len(replies) == 6
+        sizes = [r[3] for r in rec["spans"] if r[0] == "server.dispatch"]
+        assert sum(sizes) == 6 and max(sizes) >= 2
+        assert max(r["server_batch"] for r in replies) >= 2
     finally:
         server.close()
 
