@@ -152,13 +152,18 @@ then drives the port's paths through the entry points a user calls:
            ``parity-lmo`` exits 2 without data; on phase 10's tree with
            its detections and generators as ``inference.npz`` and
            ``--icp`` every AR is finite and in [0, 1], printed beside
-           phase 10's (K1 under ``parity_lmo``).
+           phase 10's (K1 under ``parity_lmo``). 12g: PnP-RANSAC's solve
+           eager and as a CUDA graph replay at 12, 24, 36 and 48
+           candidates of 1 024 points, the serving settings: bit-equal in
+           all five fields; host and device ms per call each way, the
+           capture and replay counters, the graph pools' bytes.
   last     eval-icp once more under torch.profiler (device busy share,
            K1's share, costliest device operations), then each entry's
            device operations per call on phase 1's 40 000-face sphere,
            with the device time of each (torch.profiler); after the
            paths, because a profiler session leaves the process's later
-           CUDA launches slower.
+           CUDA launches slower; and one call of each of 12g's solves,
+           eager and replayed: device operations and their device time.
 
 Each path (phases 2, 3, 4's benchmark, 5, 6, phase 7's evaluators,
 eval-icp CLI and metrics, phase 8's build, pairs and evaluation, phase
@@ -1107,6 +1112,7 @@ def phase7a_oracle(dev):
     from pix2pose_torch.eval.bop_eval_icp import BopEvaluatorICP
     from pix2pose_torch.inference.detector import GtDetector
     from pix2pose_torch.inference.engine import Pix2PoseEstimator
+    from pix2pose_torch.ops import pnp
     from pix2pose_torch.utils.synthetic import (OracleGenerator,
                                                 build_cube_dataset,
                                                 cube_mesh)
@@ -1148,9 +1154,15 @@ def phase7a_oracle(dev):
         for chunk in (None, 2):
             ev = BopEvaluator(ds, cfg, est, params, op,
                               GtDetector(ds, jitter=6, seed=3), max_det=4)
+            before = (pnp.pnp_ransac_batch.graph_captures,
+                      pnp.pnp_ransac_batch.graph_replays)
             ev.warmup()
             runs[chunk] = ev.run(seed=5, image_chunk=chunk)
             check(f"eval image_chunk={chunk}", runs[chunk], 2.0, 0.02)
+            log(f"phase 7a eval image_chunk={chunk}: new PnP graph captures "
+                f"{pnp.pnp_ransac_batch.graph_captures - before[0]}, "
+                f"replays {pnp.pnp_ransac_batch.graph_replays - before[1]} "
+                f"(warm-up and run)")
         for a, b in zip(runs[None], runs[2]):
             if ((a["scene_id"], a["im_id"], a["obj_id"], a["score"])
                     != (b["scene_id"], b["im_id"], b["obj_id"], b["score"])
@@ -2658,6 +2670,120 @@ def phase12f_parity(dev, root):
     return launches
 
 
+# the serving cell's candidate counts: batches of 1-4 frames x 4 slots x
+# 3 outlier thresholds
+PNP_GRAPH_CANDIDATES = (12, 24, 36, 48)
+
+
+def phase12g_pnp_graph(dev):
+    """PnP-RANSAC's solve after the draws, eager (``_ransac_body``) and as
+    a CUDA graph replay (``_graphed_body``), at PNP_GRAPH_CANDIDATES
+    candidates of N = 1 024 points with the serving configuration's
+    settings (32 hypotheses, select stride 4, 3 polish and 8 Gauss-Newton
+    steps): fails unless all five fields are bit-equal, naming the field
+    and its largest difference. Prints, per candidate count, host ms per
+    call each way (the host clock around the call alone) and device ms per
+    call (CUDA events), medians of 20 calls; then the capture and replay
+    counters and the bytes of the graphs' memory pool. Runs on a stream of
+    its own, whose graphs are keyed and pooled apart from every earlier
+    phase's, so each candidate count captures once here. Returns the calls
+    for :func:`pnp_graph_device_ops`."""
+    import numpy as np
+    import torch
+
+    from pix2pose_torch.ops import pnp
+    from pnp_problem import CAM_K, KW, problem
+
+    settings = {k: KW[k] for k in ("reproj_px", "min_pts", "refine_iters",
+                                   "hyp_polish_iters", "select_stride")}
+    counters = lambda: (pnp.pnp_ransac_batch.graph_captures,
+                        pnp.pnp_ransac_batch.graph_replays)
+    stream = torch.cuda.Stream(dev)
+
+    def on_stream(fn):
+        def call():
+            with torch.cuda.stream(stream):
+                return fn()
+        return call
+
+    before = counters()
+    calls, rows = {}, []
+    for c in PNP_GRAPH_CANDIDATES:
+        probs = [problem(1000 + i, n_valid=5 if i % 4 == 3 else 300 + 20 * i)
+                 for i in range(c)]
+        obj, img, valid, q = (torch.from_numpy(np.stack(x)).to(dev)
+                              for x in zip(*probs))
+        k = torch.from_numpy(CAM_K).to(dev).expand(c, 3, 3).contiguous()
+        idx = pnp._draw_index_sets(torch.Generator(device=dev).manual_seed(c),
+                                   valid, q, KW["iters"], 6, 12)
+        args = (obj, img, valid, k) + tuple(idx)
+        eager = on_stream(lambda a=args: pnp._ransac_body(*a, **settings))
+        graph = on_stream(lambda a=args: pnp._graphed_body(a, settings))
+        ref, got = eager(), graph()
+        torch.cuda.synchronize()
+        for name, g, r in zip(pnp.PnPResult._fields, got, ref):
+            if not torch.equal(g, r):
+                gap = float((g.double() - r.double()).abs().max())
+                raise AssertionError(
+                    f"phase 12g C={c}: {name} of the replay differs from "
+                    f"the eager body's, largest difference {gap}")
+        row = {"C": c, "ok": int(ref.ok.sum())}
+        for label, fn in (("eager", eager), ("graph", graph)):
+            host, device = [], []
+            for _ in range(20):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record(stream)   # the stream the calls run on
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+                b.record(stream)
+                torch.cuda.synchronize()
+                device.append(a.elapsed_time(b))
+            row[f"{label}_host_ms"] = round(float(np.median(host)), 3)
+            row[f"{label}_device_ms"] = round(float(np.median(device)), 3)
+        rows.append(row)
+        calls[c] = (eager, graph)
+    pool = tuple(pnp._pools[(obj.device, stream.cuda_stream)])
+    pool_bytes = sum(seg["total_size"] for seg in
+                     torch.cuda.memory._snapshot()["segments"]
+                     if tuple(seg["segment_pool_id"]) == pool)
+    captures, replays = (x - y for x, y in zip(counters(), before))
+    log(f"phase 12g PnP graph: bit-equal at C={list(PNP_GRAPH_CANDIDATES)}"
+        f", N=1024; per call (median of 20) {rows}; captures {captures}, "
+        f"replays {replays}; graph pool {pool_bytes / 2**20:.1f} MiB")
+    if (captures, replays) != (len(rows), 21 * len(rows)):
+        raise AssertionError(f"phase 12g: {captures} captures, {replays} "
+                             f"replays")
+    return calls
+
+
+def pnp_graph_device_ops(calls):
+    """Device operations and their device time in one call of each of
+    phase 12g's calls, eager and replayed (torch.profiler, CUDA activity
+    only, one untimed call first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for c, fns in calls.items():
+        row = {"C": c}
+        for label, fn in zip(("eager", "graph"), fns):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+            row[f"{label}_ops"] = len(ops)
+            row[f"{label}_busy_ms"] = round(
+                sum(e.duration_ns() for e in ops) / 1e6, 3)
+        rows.append(row)
+    log(f"phase 12g under torch.profiler, one call each: {rows}")
+
+
 def eval_icp_device_share(dev, root):
     """Phase 7b's eval-icp once more under torch.profiler (CUDA activity
     only): the device time of all its operations and of K1's three
@@ -2760,10 +2886,12 @@ def main() -> int:
         cube_set_12d = timed("12d", phase12d_compaction, dev)
         ros = timed("12e", phase12e_ros, dev, root)
         parity = timed("12f", phase12f_parity, dev, root)
+        pnp_calls = timed("12g", phase12g_pnp_graph, dev)
         # Last, after every path: a torch.profiler session leaves the
         # process's later CUDA launches slower, which would show in the
         # host-bound paths.
         timed("profile", eval_icp_device_share, dev, root)
+        timed("profile 12g", pnp_graph_device_ops, pnp_calls)
     log(f"walls per phase (s): {walls}; total {sum(walls.values()):.1f}")
     by_path["cube_dataset"] = {"binned_zbuffer": cube_set + cube_set_12d}
     by_path["eval_oracle"] = {"binned_zbuffer": oracle}

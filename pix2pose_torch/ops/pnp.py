@@ -21,6 +21,7 @@ threefry bits, so ``sample_idx`` lets a caller inject the index sets.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -250,6 +251,11 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
         idx_big (C, iters - iters//2, sample_k_big))`` index sets used in
         place of drawing them.
 
+    The index sets are drawn eagerly; the solve that follows is
+    :func:`_ransac_body`, run as it is on the CPU and replayed from a CUDA
+    graph on the card (:func:`_graphed_body`): the same kernels on the same
+    shapes, launched by one replay in place of ~11 000 dispatches.
+
     Returns:
       :class:`PnPResult` with a leading C axis; ``ok=False`` (identity
       pose, n_inliers=-1) with fewer than ``min_pts`` valid points.
@@ -259,7 +265,65 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
     img_pts = img_pts.to(torch.float32)
     valid = valid.to(torch.bool)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    c, n = valid.shape
+    if sample_idx is None:
+        idx_a, idx_b = _draw_index_sets(generator, valid, quality, iters,
+                                        sample_k, sample_k_big)
+    else:
+        idx_a, idx_b = (torch.as_tensor(i, device=dev).to(torch.int64)
+                        for i in sample_idx)
+    if select_stride is None:
+        select_stride = 2 if valid.shape[-1] >= 1024 else 1
+    args = (obj_pts, img_pts, valid, K, idx_a, idx_b)
+    settings = dict(reproj_px=reproj_px, min_pts=min_pts,
+                    refine_iters=refine_iters,
+                    hyp_polish_iters=hyp_polish_iters,
+                    select_stride=select_stride)
+    if dev.type == "cuda":
+        return _graphed_body(args, settings)
+    return _ransac_body(*args, **settings)
+
+
+pnp_ransac_batch.graph_captures = 0  # CUDA graphs captured, one per key
+pnp_ransac_batch.graph_replays = 0   # calls served by a graph replay
+
+
+def _draw_index_sets(generator, valid, quality, iters: int, sample_k: int,
+                     sample_k_big: int):
+    """``(idx_small (C, iters//2, sample_k), idx_big (C, iters - iters//2,
+    sample_k_big))`` for the valid masks (C, N): one generator, or one per
+    equal-sized group of candidates, each drawing its group's small sets
+    and then its big sets, so a group's sets are those of a call on that
+    group alone."""
+    c = valid.shape[0]
+    n_min = iters // 2
+    gens = generator if isinstance(generator, (list, tuple)) \
+        else [generator]
+    if c % len(gens):
+        raise ValueError(f"{c} candidates do not split into "
+                         f"{len(gens)} equal groups")
+    per = c // len(gens)
+    sets = []
+    for i, g in enumerate(gens):
+        rows = slice(i * per, (i + 1) * per)
+        q = None if quality is None else quality[rows]
+        sets.append((
+            _sample_minimal_sets(g, valid[rows], n_min, sample_k, q),
+            _sample_minimal_sets(g, valid[rows], iters - n_min,
+                                 sample_k_big, q)))
+    return tuple(torch.cat(x) for x in zip(*sets))
+
+
+def _ransac_body(obj_pts, img_pts, valid, K, idx_a, idx_b, *,
+                 reproj_px: float, min_pts: int, refine_iters: int,
+                 hyp_polish_iters: int, select_stride: int) -> PnPResult:
+    """Everything after the draws: normalisation, the hypotheses, their
+    scoring, the consensus refit and the final recount. obj_pts (C, N, 3)
+    and img_pts (C, N, 2) float32, valid (C, N) bool, K (3, 3) or
+    (C, 3, 3) float32, idx_a / idx_b int64, all on one device. Its shapes
+    follow from the inputs' alone, and it neither reads a value back to the
+    host nor copies one to the device, so a CUDA graph can capture it."""
+    dev = obj_pts.device
+    c = valid.shape[0]
     wf = valid.to(torch.float32)
     n_valid = wf.sum(-1)
 
@@ -289,28 +353,6 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
             iters=hyp_polish_iters, huber_px=reproj_px)
         return torch.cat([Rs, Rs_p], 1), torch.cat([ts, ts_p], 1)
 
-    n_min = iters // 2
-    if sample_idx is None:
-        # one generator, or one per equal-sized group of candidates: a
-        # group's sets are then those of a call on that group alone
-        gens = generator if isinstance(generator, (list, tuple)) \
-            else [generator]
-        if c % len(gens):
-            raise ValueError(f"{c} candidates do not split into "
-                             f"{len(gens)} equal groups")
-        per = c // len(gens)
-        sets = []
-        for i, g in enumerate(gens):
-            rows = slice(i * per, (i + 1) * per)
-            q = None if quality is None else quality[rows]
-            sets.append((
-                _sample_minimal_sets(g, valid[rows], n_min, sample_k, q),
-                _sample_minimal_sets(g, valid[rows], iters - n_min,
-                                     sample_k_big, q)))
-        idx_a, idx_b = (torch.cat(x) for x in zip(*sets))
-    else:
-        idx_a, idx_b = (torch.as_tensor(i, device=dev).to(torch.int64)
-                        for i in sample_idx)
     Rs_a, ts_a = hypotheses(idx_a)
     Rs_b, ts_b = hypotheses(idx_b)
     Rs = torch.cat([Rs_a, Rs_b], 1)                    # (C, H, 3, 3)
@@ -320,8 +362,7 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
     # maximum wins (the JAX package's chunked scan has the same rule)
     finite = (torch.isfinite(Rs).all(-1).all(-1)
               & torch.isfinite(ts).all(-1))
-    ss = (select_stride if select_stride is not None
-          else (2 if n >= 1024 else 1))
+    ss = select_stride
     obj_s, img_s, val_s = obj_pts[:, ::ss], img_pts[:, ::ss], valid[:, ::ss]
     proj = project(obj_s[:, None], Rs, ts, K)          # (C, H, Ns, 2)
     err = torch.linalg.vector_norm(proj - img_s[:, None], dim=-1)
@@ -385,6 +426,74 @@ def pnp_ransac_batch(obj_pts, img_pts, valid, K, generator=None,
         n_inliers=torch.where(ok, inl_f.sum(-1), -1).to(torch.int32),
         inlier_mask=inl_f & ok[:, None],
         ok=ok)
+
+
+# The solve's CUDA graphs by key: device, stream, the float32 matmul
+# precision (a capture fixes the cuBLAS math mode that held when it ran),
+# the inputs' shapes and types, the settings. Nothing is evicted: a key
+# holds its static buffers for the life of the process.
+_graphs: dict = {}
+# one memory pool per (device, stream), shared by that stream's graphs:
+# they never run at once, and each replay's outputs are cloned before the
+# next replay can reuse the pool
+_pools: dict = {}
+_graph_lock = threading.Lock()
+
+
+def _graphed_body(args, settings) -> PnPResult:
+    """:func:`_ransac_body` on CUDA tensors as a CUDA graph replay.
+
+    The first call for a key copies its inputs into static buffers, runs
+    the body once eagerly on a side stream (as ``torch.cuda.graph`` asks)
+    and captures it. Every call copies its inputs into the key's buffers,
+    replays the graph on the current stream and returns clones, so no
+    result aliases the graph's memory and a result held across calls
+    stays as it was. The RANSAC draws stay outside the graph, so the
+    generators advance as in an eager call and need no registering with
+    it. One replay takes the place of ~11 000 operator dispatches a call
+    (32 hypotheses, N = 1 024), and runs the same kernels on the same
+    shapes: the results are bit-equal to the eager body's."""
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream()
+        key = (dev, stream.cuda_stream,
+               torch.backends.cuda.matmul.allow_tf32,
+               torch.get_float32_matmul_precision(),
+               tuple((tuple(a.shape), a.dtype) for a in args),
+               tuple(sorted(settings.items())))
+        with _graph_lock:
+            entry = _graphs.get(key)
+            if entry is None:
+                if key[:2] not in _pools:
+                    _pools[key[:2]] = torch.cuda.graph_pool_handle()
+                entry = _graphs[key] = _capture(args, settings, stream,
+                                                _pools[key[:2]])
+                pnp_ransac_batch.graph_captures += 1
+            graph, static_in, static_out = entry
+            for buf, a in zip(static_in, args):
+                buf.copy_(a)
+            graph.replay()
+            out = PnPResult(*(x.clone() for x in static_out))
+            pnp_ransac_batch.graph_replays += 1
+    return out
+
+
+def _capture(args, settings, stream, pool):
+    """(graph, static inputs, static outputs) of :func:`_ransac_body` on
+    buffers holding ``args``. ``thread_local`` capture: the server's
+    threads go on launching beside the thread that captures."""
+    static_in = tuple(a.clone(memory_format=torch.contiguous_format)
+                      for a in args)
+    side = torch.cuda.Stream()
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        _ransac_body(*static_in, **settings)
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        static_out = _ransac_body(*static_in, **settings)
+    return graph, static_in, static_out
 
 
 def pnp_ransac(obj_pts, img_pts, valid, K, generator=None, quality=None,

@@ -48,10 +48,11 @@ def dlt_min_vec(ata, pin: int = 11, damping: float = 1e-7):
     ``M11 q = -m12`` is solved by :func:`chol_solve`. Component 11 is the
     z-translation of the projective pose, never near zero for visible
     objects. ata: (..., 12, 12). Returns (..., 12), unit norm."""
-    k = ata.shape[-1]
-    rest = [i for i in range(k) if i != pin]
-    M11 = ata[..., rest, :][..., :, rest]
-    m12 = ata[..., rest, pin]
+    # the rows and columns other than ``pin``, by slices: an index list
+    # would be copied to the device on every call
+    rows = torch.cat([ata[..., :pin, :], ata[..., pin + 1:, :]], dim=-2)
+    M11 = torch.cat([rows[..., :pin], rows[..., pin + 1:]], dim=-1)
+    m12 = rows[..., pin].contiguous()
     q = chol_solve(M11, -m12, damping=damping)
     one = torch.ones(q.shape[:-1] + (1,), dtype=q.dtype, device=q.device)
     p = torch.cat([q[..., :pin], one, q[..., pin:]], dim=-1)

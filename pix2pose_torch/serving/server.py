@@ -183,6 +183,9 @@ class PoseServer:
 
     def __init__(self, service, host: str = "127.0.0.1", port: int = 0,
                  max_batch: int = 8):
+        # every batch size the frontend can form, built before the socket
+        # takes a request
+        service.warm_up(max_batch)
         self.frontend = BatchingFrontend(service, max_batch=max_batch)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)

@@ -127,6 +127,28 @@ class PoseService:
         self._mesh_index: dict = {}
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def warm_up(self, max_batch: int) -> None:
+        """Run the engine once at every batch size up to ``max_batch``, on
+        blank frames with no detection and the first object's weights, so
+        that what a batch size builds on first use (PnP-RANSAC's CUDA
+        graph, one per candidate count) is built before the first request
+        and not in its latency. Only on CUDA: on the CPU nothing is built.
+        A generator of its own draws the RANSAC sets, so the service's
+        draws stay as they were."""
+        if self.device.type != "cuda":
+            return
+        h, w = self.cfg.im_height, self.cfg.im_width
+        first = {k: v[:1] for k, v in self._stacked.items()}
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        for b in range(1, max_batch + 1):
+            self.est.estimate_objects_images(
+                first, torch.zeros((b, h, w, 3), dtype=torch.uint8,
+                                   device=self.device),
+                np.zeros((b, 1, self.max_det, 4), np.int32),
+                np.zeros((b, 1, self.max_det), bool),
+                self._cam_k.expand(b, 3, 3), self._stacked_op[:1], gen)
+
     def process(self, rgb: np.ndarray, depth: np.ndarray | None = None
                 ) -> FrameResult:
         """One frame, overlays drawn: :meth:`process_many` on a batch of

@@ -14,38 +14,9 @@ import torch
 from pix2pose_tpu.ops import pnp as jpnp
 from pix2pose_torch.ops import pnp as tpnp
 from pix2pose_torch.ops.pnp import PnPResult
+from pnp_problem import CAM_K, KW, problem
 
 torch.set_num_threads(1)
-
-CAM_K = np.array([[572.4, 0.0, 325.3], [0.0, 573.6, 242.0],
-                  [0.0, 0.0, 1.0]], np.float32)
-KW = dict(iters=32, reproj_px=5.0, min_pts=6, refine_iters=8,
-          select_stride=4, hyp_polish_iters=3)
-
-
-def _problem(seed, n=1024, n_valid=600, outlier=0.2, noise=0.5):
-    """Grid-like correspondences of a 40 mm cube surface at 600 mm with
-    pixel noise, gross outliers and a partial validity mask."""
-    rng = np.random.default_rng(seed)
-    face = rng.integers(0, 3, n)
-    pts = rng.uniform(-40, 40, (n, 3))
-    pts[np.arange(n), face] = np.sign(rng.normal(size=n)) * 40.0
-    ang = rng.uniform(-0.6, 0.6, 3)
-    from scipy.spatial.transform import Rotation
-    R = Rotation.from_rotvec(ang).as_matrix()
-    t = np.array([rng.uniform(-30, 30), rng.uniform(-30, 30),
-                  rng.uniform(500, 700)])
-    p = pts @ R.T + t
-    uv = np.stack([CAM_K[0, 0] * p[:, 0] / p[:, 2] + CAM_K[0, 2],
-                   CAM_K[1, 1] * p[:, 1] / p[:, 2] + CAM_K[1, 2]], 1)
-    uv += rng.normal(0, noise, uv.shape)
-    bad = rng.random(n) < outlier
-    uv[bad] += rng.uniform(-60, 60, (bad.sum(), 2))
-    valid = np.zeros(n, bool)
-    valid[rng.permutation(n)[:n_valid]] = True
-    quality = -rng.uniform(0, 0.1, n)
-    return (pts.astype(np.float32), uv.astype(np.float32), valid,
-            quality.astype(np.float32))
 
 
 def _jax_index_sets(key, valid, quality, iters):
@@ -75,7 +46,7 @@ def jax_batch():
     """Four candidates solved by the JAX solver in one jitted call, with
     the hypothesis index sets it drew. Candidate 2 has too few valid
     points (the bail-out: identity pose, n_inliers -1)."""
-    probs = [_problem(s, n_valid=nv) for s, nv in
+    probs = [problem(s, n_valid=nv) for s, nv in
              ((0, 600), (2, 300), (3, 5), (4, 1024))]
     obj, img, valid, quality = (np.stack(x) for x in zip(*probs))
     keys = jax.random.split(jax.random.PRNGKey(7), 4)
@@ -192,3 +163,58 @@ def test_compaction_matches_jax_and_engine_keeps_the_pose(jax_batch):
     assert np.linalg.norm(comp.t[0].numpy() - t) < 0.02 * t[2]
     f_full, f_comp = float(full.frac_inlier[0]), float(comp.frac_inlier[0])
     assert abs(f_comp - f_full) < 0.15 * max(f_full, 1e-6)
+
+
+def _valid_distinct(idx, valid, k):
+    """Every index of every set points at a valid point, and a set's
+    indices are distinct wherever at least ``k`` points are valid."""
+    idx, valid = np.asarray(idx), np.asarray(valid)
+    assert np.take_along_axis(valid, idx.reshape(len(idx), -1), 1).all()
+    for c, sets in enumerate(idx):
+        if valid[c].sum() >= k:
+            assert all(len(set(s)) == k for s in sets.tolist())
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("with_quality", [True, False])
+def test_eager_draws_then_body_equal_one_call(jax_batch, groups,
+                                              with_quality):
+    """The split of ``pnp_ransac_batch``: ``_draw_index_sets`` gives sets
+    of the shapes and kinds the JAX solver draws (valid points only,
+    distinct within a set with enough valid points), with one generator
+    or one per group, with and without PROSAC quality; a group's sets are
+    those drawn on that group alone; and the one call equals the call fed
+    those sets through ``sample_idx``, the path held to the JAX solver
+    above, bit for bit. On the CPU no graph is captured or replayed."""
+    (obj, img, valid, quality), jax_idx, _ = jax_batch
+    obj, img, valid, quality = (torch.from_numpy(x)
+                                for x in (obj, img, valid, quality))
+    q = quality if with_quality else None
+    k = torch.from_numpy(CAM_K)
+    seeds = (21, 22)[:groups]
+
+    def gens():
+        g = [torch.Generator().manual_seed(s) for s in seeds]
+        return g if groups > 1 else g[0]
+
+    idx = tpnp._draw_index_sets(gens(), valid, q, KW["iters"], 6, 12)
+    for got, ref, size in zip(idx, jax_idx, (6, 12)):
+        assert got.shape == ref.shape and got.dtype == torch.int64
+        _valid_distinct(ref, valid, size)
+        _valid_distinct(got, valid, size)
+    if groups > 1:
+        for g, rows in zip(gens(), (slice(0, 2), slice(2, 4))):
+            alone = tpnp._draw_index_sets(
+                g, valid[rows], None if q is None else q[rows],
+                KW["iters"], 6, 12)
+            for x, y in zip(idx, alone):
+                assert torch.equal(x[rows], y)
+    before = (tpnp.pnp_ransac_batch.graph_captures,
+              tpnp.pnp_ransac_batch.graph_replays)
+    one = tpnp.pnp_ransac_batch(obj, img, valid, k, gens(), q, **KW)
+    fed = tpnp.pnp_ransac_batch(obj, img, valid, k, sample_idx=idx, **KW)
+    assert list(one.ok) == [True, True, False, True]
+    for x, y in zip(one, fed):
+        assert torch.equal(x, y)
+    assert (tpnp.pnp_ransac_batch.graph_captures,
+            tpnp.pnp_ransac_batch.graph_replays) == before
